@@ -11,16 +11,23 @@ Phases, each reported on its own lines:
    (``nvidia-smi``), TF32 off, and the build of every CUDA kernel from
    ``src/repro_torch/csrc/``;
 2. kernel checks: each kernel against its plain PyTorch version on the card,
-   at the shapes the compressor's main path gives it, with times of the
-   kernel, the plain version, one PyTorch library call where there is one,
-   and the card's bound for the same work;
+   at the shapes the compressor's main path and the LM prefill and serve
+   runs give it, with
+   times of the kernel, the plain version, one PyTorch library call where
+   there is one, and the card's bound for the same work;
 3. main path: the S3D configuration at full width on a synthetic
    58x50x160x160 field — seeded untrained weights, ``fit_basis``,
    ``compress`` at tau 0.5, write and read the ``.rba`` archive, ``decompress``
    — with every kernel's launches counted, the tau guarantee and the disk
    round trip checked, and the first stripe held against the same path on
    the CPU;
-4. one JSON line with every kernel's numbers, then the result line
+4. LM path, for qwen2-1.5b and mamba2-370m at full width with seeded
+   weights: ``forward`` over 1 x 4096 random tokens (the prefill, with its
+   kernel launched once per layer), ``forward``'s last logits against the
+   serving engine's decode-step prefill on a 64-token prompt, the device
+   time of one ``decode_step`` against its wall, and ``ServeEngine.serve``
+   on 8 requests with raw KV and with ``kv_tau`` 0.05;
+5. one JSON line with every kernel's numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the result line.  Without a CUDA
@@ -38,12 +45,15 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM, dense published peaks: HBM bandwidth and fp32 outside the
-# tensor cores (the kernels here use fp32 FMA only).
+# NVIDIA H100 SXM, dense published peaks: HBM bandwidth, fp32 outside the
+# tensor cores (the kernels here use fp32 FMA only), and bf16 in the tensor
+# cores (the peak for bf16 inputs).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 TAU = 0.5
+KV_TAU = 0.05       # the LM serve run's per-token bound on the KV cache
 FIELD = dict(n_species=58, t=50, h=160, w=160)
 FULL_FIELD = "58x50x640x640 (1.19 G values)"
 
@@ -52,9 +62,10 @@ class CheckFailed(Exception):
     pass
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_flops: float,
+             peak: float = FP32_FLOPS) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_flops = n_flops / FP32_FLOPS
+    t_flops = n_flops / peak
     return (max(t_bytes, t_flops) * 1e3,
             "bytes" if t_bytes >= t_flops else "operations")
 
@@ -107,14 +118,17 @@ def check_kernels(torch, dev) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.block_attention import ops as ba
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.gae_project import ops as gp
     from repro_torch.kernels.quantize import ops as qz
+    from repro_torch.kernels.ssd_scan import ops as sd
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
 
-    def row(name, source, replaces, err, ms, plain, lib, n_bytes, n_flops):
-        b_ms, b_by = bound_ms(n_bytes, n_flops)
+    def row(name, source, replaces, err, ms, plain, lib, n_bytes, n_flops,
+            peak=FP32_FLOPS):
+        b_ms, b_by = bound_ms(n_bytes, n_flops, peak)
         if name not in rows:
             rows[name] = {"name": name, "route": "cuda", "source": source,
                           "replaces": replaces, "launches": 0,
@@ -133,10 +147,11 @@ def check_kernels(torch, dev) -> dict:
 
     # quantize: GAE coefficients (37120,80); latents per stripe (64,128),
     # (640,16); latents of fit_basis's one pass over all 1600 hyper-blocks
-    # (1600,128), (16000,16)
+    # (1600,128), (16000,16); the qwen2-1.5b serve run's K or V cache (28
+    # layers x 1 x 128 tokens, KV*hd = 256) at bin 2 KV_TAU / sqrt(256)
     for shape, b in (((37120, 80), 0.01), ((64, 128), 0.005),
                      ((640, 16), 0.005), ((1600, 128), 0.005),
-                     ((16000, 16), 0.005)):
+                     ((16000, 16), 0.005), ((3584, 256), 2 * KV_TAU / 16)):
         x = 0.3 * torch.randn(shape, generator=gen, device=dev)
         got = qz.quantize_fused(x, b)
         want = qz.quantize_fused_plain(x, b)
@@ -198,6 +213,91 @@ def check_kernels(torch, dev) -> dict:
                          2 * nrows * d * d + nrows * d)
         report("gae_project", (nrows, d, d), err, t, t_plain, t_lib, b_ms,
                b_by)
+
+    # flash_attention: the qwen2-1.5b prefill (B 1, S = T = 4096, H 12, KV 2,
+    # hd 128, causal) in fp32 and bf16, a window of 64, T > S (queries
+    # suffix-aligned), a ragged S.  The bound counts the live (q, k) pairs of
+    # the mask; the bf16 row is bound at the bf16 tensor-core peak.
+    for b, s_, t_, dtype, window in ((1, 4096, 4096, torch.float32, 0),
+                                     (1, 4096, 4096, torch.bfloat16, 0),
+                                     (1, 4096, 4096, torch.float32, 64),
+                                     (1, 1000, 4096, torch.float32, 0),
+                                     (1, 1000, 1000, torch.float32, 0)):
+        h, kvh, hd = 12, 2, 128
+        q = torch.randn(b, s_, h, hd, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, t_, kvh, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, t_, kvh, hd, generator=gen, device=dev).to(dtype)
+        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        # the kernel computes in fp32 and rounds once, so in bf16 it is held
+        # to the fp32 plain version on the same inputs, rounded to bf16: one
+        # bf16 rounding apart at most (8 significant bits, 2^-7 = 0.0078)
+        want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        causal=True, window=window).to(dtype)
+        tol = (dict(atol=1e-3, rtol=1e-2) if dtype == torch.bfloat16
+               else dict(atol=3e-5, rtol=3e-5))
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        err = (got.float() - want.float()).abs().max().item()
+        mask = fa.attention_mask(s_, t_, True, window, dev)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa_mask = None if (window == 0 and s_ == t_) else mask
+        t = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True,
+                                                      window=window), iters=10)
+        t_plain = time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, window=window), iters=10)
+        t_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=sdpa_mask, is_causal=sdpa_mask is None,
+            enable_gqa=True), iters=10)
+        live = int(mask.sum().item())
+        size = q.element_size()
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        b_ms, b_by = row("flash_attention",
+                         "src/repro_torch/csrc/flash_attention.cu",
+                         "src/repro/kernels/flash_attention/kernel.py:29", err,
+                         t[0], t_plain[0], t_lib[0],
+                         size * (2 * q.numel() + 2 * k.numel()),
+                         b * h * live * 4 * hd, peak)
+        report("flash_attention", (b, s_, t_, h, kvh, hd, str(dtype)[6:],
+                                   f"window {window}"),
+               err, t, t_plain, t_lib, b_ms, b_by)
+
+    # ssd_scan: the mamba2-370m prefill (B 1, S 4096, H 32, P 64, G 1, N 128,
+    # chunk 256), a ragged S, G = 2.  Inputs as the JAX kernel tests make
+    # them.  The bound counts the chunked algorithm's products over the
+    # chunks' real lengths: the causal half of C.B^T once per group (b and c
+    # are shared by the group's heads), and per head the causal half of
+    # scores.x, C.h and the state update.  Tolerance 3e-4 of the output's
+    # scale: at chunk 256 cum reaches about -500, and exp of differences of
+    # such fp32 sums carries ~1e-5 relative error that depends on the
+    # cumsum's order.
+    for b, s_, h, p, g, n, chunk in ((1, 4096, 32, 64, 1, 128, 256),
+                                     (1, 1000, 32, 64, 1, 128, 256),
+                                     (1, 4096, 32, 64, 2, 128, 256)):
+        x = torch.randn(b, s_, h, p, generator=gen, device=dev)
+        dt = F.softplus(torch.randn(b, s_, h, generator=gen, device=dev))
+        a_log = torch.rand(h, generator=gen, device=dev)
+        bm = torch.randn(b, s_, g, n, generator=gen, device=dev)
+        cm = torch.randn(b, s_, g, n, generator=gen, device=dev)
+        args = (x, dt, a_log, bm, cm)
+        got = sd.ssd(*args, chunk=chunk)
+        want = sd.ssd_plain(*args, chunk=chunk)
+        for gt, wt in zip(got, want):
+            scale = max(1.0, wt.abs().max().item())
+            torch.testing.assert_close(gt, wt, atol=3e-4 * scale, rtol=3e-4)
+        err = max((gt - wt).abs().max().item() for gt, wt in zip(got, want))
+        t = time_ms(torch, lambda: sd.ssd(*args, chunk=chunk), iters=10)
+        t_plain = time_ms(torch, lambda: sd.ssd_plain(*args, chunk=chunk),
+                          iters=10)
+        lens = [min(chunk, s_ - c0) for c0 in range(0, s_, chunk)]
+        flops = b * sum(g * ln * (ln + 1) * n
+                        + h * (ln * (ln + 1) * p + 4 * ln * n * p)
+                        for ln in lens)
+        n_bytes = 4 * (2 * x.numel() + dt.numel() + h + 2 * bm.numel()
+                       + b * h * p * n)
+        b_ms, b_by = row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+                         "src/repro/kernels/ssd_scan/kernel.py:32", err,
+                         t[0], t_plain[0], None, n_bytes, flops)
+        report("ssd_scan", (b, s_, h, p, g, n, chunk), err, t, t_plain, None,
+               b_ms, b_by)
     return rows
 
 
@@ -205,7 +305,9 @@ def check_kernels(torch, dev) -> dict:
 # phase 3: the compressor's main path
 # ---------------------------------------------------------------------------
 
-def run_main_path(torch, dev, counters) -> dict:
+def run_main_path(torch, dev, counters, kernels) -> dict:
+    """The compressor path; ``kernels`` are the counters' names it must
+    launch."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -262,8 +364,8 @@ def run_main_path(torch, dev, counters) -> dict:
           f"(untrained AE, not a result)", flush=True)
     print(f"main path launches: {json.dumps(launches)}", flush=True)
 
-    for name, n in launches.items():
-        if n <= 0:
+    for name in kernels:
+        if launches[name] <= 0:
             raise CheckFailed(f"kernel {name} was not launched on the main path")
     if recon.shape != hb.shape or not np.isfinite(recon).all():
         raise CheckFailed(f"decompress gave shape {recon.shape} or "
@@ -299,6 +401,189 @@ def run_main_path(torch, dev, counters) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the LM path (prefill and serving)
+# ---------------------------------------------------------------------------
+
+LM_MODELS = (("qwen2-1.5b", "flash_attention"), ("mamba2-370m", "ssd_scan"))
+PREFILL_TOKENS = 4096
+CONSISTENCY_PROMPT = 64
+# forward's last logits (the kernels, chunked) against the engine's prefill
+# (one decode step at a time, plain code), fp32 through 28 or 48 layers
+CONSISTENCY_ATOL = 1e-3
+SERVE = dict(requests=8, slots=4, prompt=32, new=16, max_len=128)
+# decode_step calls per request: the prompt's prefill, then all new tokens
+# but the last
+SERVE_STEPS = SERVE["requests"] * (SERVE["prompt"] + SERVE["new"] - 1)
+DECODE_STEPS = 16
+
+
+def run_lm_path(torch, dev, counters) -> dict:
+    """Prefill, consistency and serving for each LM model; returns the
+    launches of each model's kernel in its prefill run."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    def reset():
+        for c in counters.values():
+            c.reset()
+
+    def read():
+        return {name: c.value for name, c in counters.items()}
+
+    prefill_launches = {}
+    for arch, kernel in LM_MODELS:
+        cfg, run = get_config(arch), RunConfig()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        params = registry.init_params(cfg, run, gen, dev)
+        api = registry.get_model(cfg)
+        n_params = sum(_numel(params))
+        print(f"lm {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"vocab {cfg.vocab}, {n_params / 1e6:.1f} M params (seeded, "
+              f"fp32), made in {time.perf_counter() - t0:.1f} s", flush=True)
+        tokens = torch.randint(0, cfg.vocab, (1, PREFILL_TOKENS),
+                               generator=gen, device=dev)
+
+        # 1. prefill: forward over 1 x 4096 tokens
+        api.forward(params, cfg, run, tokens[:, :256])       # warm-up
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        logits = api.forward(params, cfg, run, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read()
+        prefill_launches[kernel] = launches[kernel]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            api.forward(params, cfg, run, tokens)
+            torch.cuda.synchronize()
+        busy = device_ms(torch, prof)
+        mine = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and kernel.split("_")[0] in e.name) / 1e3
+        print(f"lm {arch} prefill: B 1 x S {PREFILL_TOKENS}, wall {wall:.4f} s, "
+              f"{PREFILL_TOKENS / wall:.1f} tokens/s; profiled run: device "
+              f"busy {busy:.3f} ms, of it {kernel} {mine:.3f} ms; launches "
+              f"{json.dumps(launches)}", flush=True)
+        if launches[kernel] != cfg.n_layers:
+            raise CheckFailed(f"{arch} forward launched {kernel} "
+                              f"{launches[kernel]} times, not once per layer "
+                              f"({cfg.n_layers})")
+        if (tuple(logits.shape) != (1, PREFILL_TOKENS, cfg.vocab)
+                or not torch.isfinite(logits).all()):
+            raise CheckFailed(f"{arch} forward gave shape "
+                              f"{tuple(logits.shape)} or non-finite logits")
+        del logits
+
+        # 2. consistency: forward (kernel) against the engine's prefill
+        prompt = tokens[:, :CONSISTENCY_PROMPT]
+        full = api.forward(params, cfg, run, prompt)[:, -1]
+        eng = ServeEngine(cfg, run, params, batch_size=1, max_len=128,
+                          device=dev)
+        _, last = eng.prefill(prompt, api.init_decode_state(params, cfg, run,
+                                                            1, 128))
+        diff = (full - last).abs().max().item()
+        print(f"lm {arch} consistency: forward vs engine prefill on "
+              f"{CONSISTENCY_PROMPT} tokens, last logits max abs diff "
+              f"{diff:.3e} (max |logit| {full.abs().max().item():.3f}, "
+              f"tolerance {CONSISTENCY_ATOL})", flush=True)
+        if not diff <= CONSISTENCY_ATOL:
+            raise CheckFailed(f"{arch}: forward and engine prefill differ by "
+                              f"{diff}")
+        if cfg.family == "dense":
+            _check_kv_quantize(torch, arch, eng.prefill(
+                prompt, api.init_decode_state(params, cfg, run, 1,
+                                              SERVE["max_len"]))[0].caches)
+
+        # where a serving step's time goes: the device time of one
+        # decode_step (B 1, as the engine runs each slot) against its wall
+        state = api.init_decode_state(params, cfg, run, 1, SERVE["max_len"])
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for t in range(DECODE_STEPS):
+                _, state = api.decode_step(params, cfg, run,
+                                           prompt[:, t:t + 1], state)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / DECODE_STEPS * 1e3
+        busy_ms = device_ms(torch, prof) / DECODE_STEPS
+        print(f"lm {arch} decode_step (B 1, profiled): wall {step_ms:.3f} ms, "
+              f"device busy {busy_ms:.3f} ms, idle share "
+              f"{1 - busy_ms / step_ms:.4f}", flush=True)
+
+        # 3. serving: continuous batching, raw KV and kv_tau
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=rng.integers(
+                    0, cfg.vocab, SERVE["prompt"]).astype(np.int32),
+                    max_new_tokens=SERVE["new"])
+                for i in range(SERVE["requests"])]
+        outs = {}
+        for tau in (None, KV_TAU):
+            eng = ServeEngine(cfg, run, params, batch_size=SERVE["slots"],
+                              max_len=SERVE["max_len"], kv_tau=tau, device=dev)
+            reset()
+            t0 = time.perf_counter()
+            outs[tau] = eng.serve(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read()
+            gen_tokens = sum(len(c.tokens) for c in outs[tau])
+            print(f"lm {arch} serve (kv_tau {tau}): {len(outs[tau])} "
+                  f"requests, {SERVE['slots']} slots, prompt "
+                  f"{SERVE['prompt']}, {gen_tokens} new tokens in {wall:.4f} "
+                  f"s, {gen_tokens / wall:.2f} tokens/s, "
+                  f"{wall / SERVE_STEPS * 1e3:.2f} ms per decode_step; launches "
+                  f"{json.dumps(launches)}", flush=True)
+            if (len(outs[tau]) != SERVE["requests"]
+                    or gen_tokens != SERVE["requests"] * SERVE["new"]):
+                raise CheckFailed(f"{arch} serve (kv_tau {tau}) returned "
+                                  f"{len(outs[tau])} completions, "
+                                  f"{gen_tokens} tokens")
+            if tau is not None and cfg.family == "dense" \
+                    and launches["quantize"] <= 0:
+                raise CheckFailed(f"{arch}: the kv_tau run launched no "
+                                  f"quantize kernel")
+        agree = np.mean([np.mean(a.tokens == b.tokens)
+                         for a, b in zip(outs[None], outs[KV_TAU])])
+        print(f"lm {arch} serve: token agreement raw KV vs kv_tau "
+              f"{KV_TAU}: {agree:.4f}" + ("" if cfg.family == "dense" else
+                                          " (an SSM has no KV cache)"),
+              flush=True)
+        del params, eng
+        torch.cuda.empty_cache()
+    return prefill_launches
+
+
+def _check_kv_quantize(torch, arch, caches) -> None:
+    """The kv_tau path's quantize kernel on the serving path's own input: a
+    prefilled K and V cache, against the plain version, bit for bit."""
+    from repro_torch.kernels.quantize import ops as qz
+    from repro_torch.runtime.kvcache import quantize_kv_bounded
+
+    for name, kv in (("k", caches.k), ("v", caches.v)):
+        d = kv.shape[-2] * kv.shape[-1]
+        flat = kv.reshape(-1, d).float().contiguous()
+        got = quantize_kv_bounded(kv, KV_TAU)
+        want = qz.quantize_fused_plain(flat, 2 * KV_TAU / d ** 0.5)[1]
+        if not torch.equal(got.reshape(flat.shape), want):
+            raise CheckFailed(f"{arch}: quantize_kv_bounded on the prefilled "
+                              f"{name} cache {tuple(kv.shape)} is not "
+                              f"bit-identical to the plain version")
+        print(f"lm {arch} kv_tau: quantize kernel on the prefilled {name} "
+              f"cache {tuple(kv.shape)} bit-identical to the plain version",
+              flush=True)
+
+
+def _numel(tree):
+    for v in tree.values():
+        yield from (_numel(v) if isinstance(v, dict) else [v.numel()])
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
@@ -321,8 +606,10 @@ def main() -> int:
     try:
         from repro_torch.kernels import build
         from repro_torch.kernels.block_attention import ops as ba
+        from repro_torch.kernels.flash_attention import ops as fa
         from repro_torch.kernels.gae_project import ops as gp
         from repro_torch.kernels.quantize import ops as qz
+        from repro_torch.kernels.ssd_scan import ops as sd
     except ImportError as e:
         print(f"FAIL: the port's package is not beside this script: {e}",
               file=sys.stderr)
@@ -349,8 +636,13 @@ def main() -> int:
     try:
         rows = check_kernels(torch, dev)
         counters = {"quantize": qz.launches, "block_attention": ba.launches,
-                    "gae_project": gp.launches}
-        launches = run_main_path(torch, dev, counters)
+                    "gae_project": gp.launches, "flash_attention": fa.launches,
+                    "ssd_scan": sd.launches}
+        launches = run_main_path(torch, dev, counters,
+                                 ("quantize", "block_attention", "gae_project"))
+        launches = {name: launches[name] for name in
+                    ("quantize", "block_attention", "gae_project")}
+        launches.update(run_lm_path(torch, dev, counters))
     except (CheckFailed, AssertionError) as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -50,7 +50,7 @@ def resolve_device(device=None) -> torch.device:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: pass device='cpu' to run "
-                           "the compressor on the CPU")
+                           "on the CPU")
     return torch.device("cuda")
 
 

@@ -33,8 +33,17 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+PORT_MODULES = ("repro_torch.core.pipeline", "repro_torch.runtime.archive_io",
+                "repro_torch.configs", "repro_torch.models.registry",
+                "repro_torch.models.transformer", "repro_torch.models.ssd",
+                "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.kernels.ssd_scan.ops",
+                "repro_torch.runtime.kvcache", "repro_torch.serve.engine",
+                "repro_torch.launch.serve")
+
+
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch.core.pipeline, repro_torch.runtime.archive_io;"
+    code = (f"import sys, {', '.join(PORT_MODULES)};"
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
