@@ -16,26 +16,38 @@
 // half of C.B^T once per group; per head the causal half of scores.x, C.h
 // and the state update) are 6.6 GFLOP a call against 70 MB moved.
 //
-// The TPU kernel runs one program per (b, h), walking the chunks in order
-// with the state in VMEM.  On Hopper that is B * H = 32 blocks for 132 SMs,
-// each recomputing C.B^T, which is the largest product and the same for
-// every head of a group.  So the work is split in two kernels:
-//   1. `ssd_cb_kernel`, one block per (b, group, chunk): the chunk's
-//      C.B^T on and below the diagonal, in 64 x 64 tiles from shared
-//      memory, written to a (B, G, nc, Q, Q) fp32 scratch (4 MB for
-//      mamba2-370m at S = 4096, read back from L2);
-//   2. `ssd_scan_kernel`, one block per (b, h, 16 columns of P): 128 blocks
-//      for mamba2-370m.  It walks the chunks in order with its (16, N) slice
-//      of the state in shared memory (the state's rows are independent in
-//      p), and per chunk: cum = cumsum(dt * a) once in fp32 (one warp, a
-//      segmented scan), the inter-chunk term exp(cum_s) C_s . h_in, the
-//      intra-chunk term (C.B^T * exp(cum_s - cum_t) [t <= s]) . (x dt) over
-//      64-row tiles, and the state update exp(cum_last) h +
-//      sum_t exp(cum_last - cum_t) (x dt)_t b_t^T.  The state reaches device
-//      memory once, at the end.
-// Operands are read as float4 from rows padded by four floats, so that the
-// reads hit distinct banks.  A ragged S is handled in the loads: positions
-// at or beyond S read as dt = 0, x = b = c = 0, which is exactly the padded
+// The TPU kernel runs one program per (b, h) and walks the chunks in order,
+// the state in VMEM.  Walking the chunks in order is what held the first
+// port back: 128 blocks for 132 SMs, each a chain of loads and barriers per
+// chunk with nothing else in flight, and every chunk's C, B and C.B^T re-read
+// by every block.  Here the chunks are independent except for one
+// elementwise recurrence, the chunk-parallel form of SSD, in four kernels on
+// one stream (one launch of the op):
+//   1. `ssd_cb_kernel`, one block per (b, group, chunk, 64 x 64 tile on or
+//      below the diagonal): C.B^T into a (B, G, nc, Q, Q) scratch (4 MB at
+//      mamba2-370m, read back from L2 by the group's heads);
+//   2. `ssd_chunk_state_kernel`, one block per (b, h, chunk, 64 columns of
+//      P): cum = cumsum(dt a) over the chunk as a block-wide scan, into a
+//      (B, nc, Q, H) scratch, and the chunk's own state
+//      s_c = sum_t exp(cum_last - cum_t) dt_t x_t b_t^T, into a
+//      (B, nc, H, N, P) scratch (16 MB at mamba2-370m, which stays in L2);
+//   3. `ssd_state_passing_kernel`, one thread per (b, h, n, p): walks the
+//      chunks, h_in[c] = carry; carry = exp(cum_last[c]) carry + s_c,
+//      writing h_in into a (B, nc, H, N, P) scratch and the last carry to
+//      `state`;
+//   4. `ssd_chunk_scan_kernel`, one block per (b, h, chunk, 64 rows of the
+//      chunk, 64 columns of P): y = exp(cum_s) C_s . h_in[c] +
+//      (C.B^T * exp(cum_s - cum_t) dt_t [t <= s]) . x, over the 64-row tiles
+//      of t on or below the diagonal.  Heavy tiles (near the end of the
+//      chunk) are scheduled first.
+// At mamba2-370m that is 160 + 512 + 1024 + 2048 blocks instead of 128.
+// Phases 2 and 4 are register-tiled SIMT fp32 GEMMs (8 x 4 and 4 x 4 outputs
+// a thread, read 16 bytes at a time) from shared memory; their operand tiles arrive by `cp.async`,
+// with the next tile's copy in flight while this tile's FMAs run.  fp32 FMA
+// only, no tensor cores: the kernel is held to its fp32 plain version, and
+// the gap to the bound was parallelism and traffic, not the FMA rate.
+// A ragged S is handled in the loads: positions at or beyond S read as
+// dt = 0, x = b = c = 0 (`cp.async` zero-fills), which is exactly the padded
 // call's input, so the final state is bit-identical to that of a call padded
 // with dt = 0, and y rows beyond S are not written.
 // Built with -O3 and no --use_fast_math: `expf` is the accurate one.
@@ -45,97 +57,146 @@
 
 namespace {
 
-constexpr int TS = 64;          // rows of a query or key tile within a chunk
-constexpr int PL = 16;          // columns of P per scan block
 constexpr int NT = 256;         // threads per block, 16 x 16
-constexpr int LDS = TS + 4;     // row stride of the scores tile
+constexpr int TS = 64;          // rows of a tile of the chunk, columns of P
+constexpr int TK = 32;          // rows of t per step of the chunk state
+constexpr int LDW = TS + 4;     // row stride of the scores tile
+constexpr int NI = 8;           // rows n of the chunk state a thread holds:
+                                // 16 x 8 covers N <= 128
 
 struct Dims {
   int S, H, P, N, G, Q, nc;
-  bool vec_bc, vec_x;   // b, c (x) rows are 16-byte aligned float4 groups
+  bool vec_bc, vec_x;   // rows of b, c (of x, y and the states) are
+                        // 16-byte aligned float4 groups
 };
 
 __host__ __device__ inline int n4(int N) { return (N + 3) / 4 * 4; }
+__host__ __device__ inline int ptiles(int P) { return (P + TS - 1) / TS; }
+__host__ __device__ inline int qtiles(int Q) { return (Q + TS - 1) / TS; }
 
-size_t cb_smem_bytes(int N) {
-  return sizeof(float) * 2 * TS * (size_t)(n4(N) + 4);
+// ---- shared memory, in floats ---------------------------------------------
+size_t cb_smem(int N) { return 2 * (size_t)TS * (n4(N) + 4); }
+size_t state_smem(int Q) {
+  return 3 * (size_t)Q + 8 + 2 * (size_t)TK * (TS + 16 * NI);
+}
+size_t scan_smem(int N, int Q) {
+  const size_t a = (size_t)TS * (n4(N) + 4) + (size_t)n4(N) * TS;
+  const size_t b = 2 * (size_t)TS * TS + (size_t)TS * LDW;
+  return 2 * (size_t)Q + (a > b ? a : b);
 }
 
-// floats of shared memory of the scan: state slice, one C or B tile, x*dt
-// tile, scores tile, dt and cum of one chunk
-size_t scan_smem_bytes(int N, int Q) {
-  const size_t ldn = n4(N) + 4;
-  return sizeof(float) * (PL * ldn + TS * ldn + TS * PL + TS * LDS + 2 * (size_t)Q);
+// ---- cp.async with zero fill ----------------------------------------------
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
 }
 
-// Rows [t0, t0 + TS) of the chunk at c0 of a (S, row_stride) operand into a
-// shared tile of row stride ldn; zero beyond the chunk's Q rows, beyond S and
-// beyond N.  Each thread first issues all its loads (at most 8 groups of
-// four floats: TS * 128 / 4 / NT), then stores them, so that their latencies
-// overlap; `vec` (N % 4 == 0, rows 16-byte aligned) loads each group as one
-// float4.
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long row_stride, int c0,
-                                          int t0, int Q, int S, int N,
-                                          int ldn, bool vec) {
-  const int w4 = n4(N) / 4;
-  float4 v[8];
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int K>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(K) : "memory");
+}
+
+// A (rows, 4 * groups) tile of shared memory (row stride ld) from rows of a
+// strided operand (row stride `stride` floats): element (r, col) is
+// src[r * stride + col] where r < valid and col < width, else 0.  `vec`:
+// width, stride and src are whole 16-byte groups.
+__device__ __forceinline__ void load_tile(float* dst, int ld, int rows,
+                                          int groups, const float* src,
+                                          long long stride, int valid,
+                                          int width, bool vec) {
+  for (int e = threadIdx.x; e < rows * groups; e += NT) {
+    const int r = e / groups, col = (e - r * groups) * 4;
+    float* d = dst + r * ld + col;
+    const float* s = src + r * stride + col;
+    if (vec) {
+      const bool ok = r < valid && col < width;
+      cp_async16(d, ok ? s : src, ok ? 16 : 0);
+    } else {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int e = threadIdx.x + k * NT;
-    const int r = e / w4, n = (e - r * w4) * 4, t = t0 + r, pos = c0 + t;
-    v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (e < TS * w4 && t < Q && pos < S) {
-      const float* row = src + pos * row_stride + n;
-      if (vec) {
-        v[k] = *reinterpret_cast<const float4*>(row);
-      } else {
-        v[k].x = row[0];
-        if (n + 1 < N) v[k].y = row[1];
-        if (n + 2 < N) v[k].z = row[2];
-        if (n + 3 < N) v[k].w = row[3];
+      for (int q = 0; q < 4; ++q) {
+        const bool ok = r < valid && col + q < width;
+        cp_async4(d + q, ok ? s + q : src, ok ? 4 : 0);
       }
     }
   }
+}
+
+// acc[j] += a * b[j] for the four lanes of b
+__device__ __forceinline__ void fma4(float* acc, float a, const float4& b) {
+  acc[0] = fmaf(a, b.x, acc[0]);
+  acc[1] = fmaf(a, b.y, acc[1]);
+  acc[2] = fmaf(a, b.z, acc[2]);
+  acc[3] = fmaf(a, b.w, acc[3]);
+}
+
+// row[col + j] = v[j] for col + j < width; one 16-byte store where `vec`
+// (row 16-byte aligned, width a multiple of 4)
+__device__ __forceinline__ void store4(float* row, int col, int width,
+                                       const float* v, bool vec) {
+  if (vec) {
+    if (col < width)
+      *reinterpret_cast<float4*>(row + col) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int e = threadIdx.x + k * NT;
-    const int r = e / w4, n = (e - r * w4) * 4;
-    if (e < TS * w4) *reinterpret_cast<float4*>(&dst[r * ldn + n]) = v[k];
+    for (int j = 0; j < 4; ++j)
+      if (col + j < width) row[col + j] = v[j];
   }
 }
 
-// Rows [t0, t0 + TS) of this block's PL columns of x, times dt (and, for the
-// state update, times exp(cum_last - cum_t)), into the (TS, PL) tile: one
-// group of four columns per thread, loaded before it is stored.
-__device__ __forceinline__ void load_xdt(float* dst, const float* xb,
-                                         long long xrow, const float* sDt,
-                                         const float* sCum, float cum_last,
-                                         bool edge, int c0, int t0, int Q,
-                                         int S, int pw, bool vec) {
-  const int r = threadIdx.x / (PL / 4), p = (threadIdx.x % (PL / 4)) * 4;
-  const int t = t0 + r, pos = c0 + t;
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (t < Q && pos < S && p < pw) {
-    const float* row = xb + pos * xrow + p;
-    if (vec) {
-      v = *reinterpret_cast<const float4*>(row);
-    } else {
-      v.x = row[0];
-      if (p + 1 < pw) v.y = row[1];
-      if (p + 2 < pw) v.z = row[2];
-      if (p + 3 < pw) v.w = row[3];
+// cum[t] = sum_{t' <= t} dt[t'] a for t < Q, as a block-wide scan: each
+// thread sums a run of ceil(Q / NT) steps, then the runs are scanned across
+// the warps.  `warp_sums` holds 8 floats.
+__device__ void block_cumsum(float* cum, const float* dt, float a, int Q,
+                             float* warp_sums) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (Q + NT - 1) / NT, lo = min(Q, tid * per),
+            hi = min(Q, lo + per);
+  float run = 0.f;
+  for (int t = lo; t < hi; ++t) {
+    run += dt[t] * a;
+    cum[t] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float up = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += up;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    float v = lane < NT / 32 ? warp_sums[lane] : 0.f;
+#pragma unroll
+    for (int o = 1; o < NT / 32; o <<= 1) {
+      const float up = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += up;
     }
-    const float f = edge ? sDt[t] * expf(cum_last - sCum[t]) : sDt[t];
-    v.x *= f;
-    v.y *= f;
-    v.z *= f;
-    v.w *= f;
+    if (lane < NT / 32) warp_sums[lane] = v;
   }
-  *reinterpret_cast<float4*>(&dst[r * PL + p]) = v;
+  __syncthreads();
+  float before = __shfl_up_sync(0xffffffffu, incl, 1);   // the runs before
+  if (lane == 0) before = 0.f;
+  if (warp > 0) before += warp_sums[warp - 1];
+  for (int t = lo; t < hi; ++t) cum[t] += before;
+  __syncthreads();
 }
 
-// C.B^T of one chunk of one (b, group), tiles on and below the diagonal.
+// ---- 1. C.B^T -------------------------------------------------------------
+// Block (pair, chunk, b * G + g); pair enumerates the tiles (st, tt) with
+// tt <= st.  Thread (ty, tx) owns rows s = 4 ty + i and columns t = tx + 16 j.
 __global__ void __launch_bounds__(NT)
 ssd_cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
               float* __restrict__ cb, Dims d) {
@@ -145,285 +206,385 @@ ssd_cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
   float* sC = reinterpret_cast<float*>(smem4);   // (TS, ldn)
   float* sB = sC + TS * ldn;                     // (TS, ldn)
 
+  int st = 0, tt = blockIdx.x;
+  while (tt > st) tt -= ++st;
+  const int ci = blockIdx.y, c0 = ci * Q;
+  const int b = blockIdx.z / G, g = blockIdx.z % G;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int ci = blockIdx.x, g = blockIdx.y, b = blockIdx.z, c0 = ci * Q;
   const long long brow = (long long)G * N;
-  const float* bb = bm + (long long)b * S * brow + (long long)g * N;
-  const float* cc = cm + (long long)b * S * brow + (long long)g * N;
-  float* out = cb + (((long long)b * G + g) * d.nc + ci) * Q * Q;
+  const long long base = ((long long)b * S + c0) * brow + (long long)g * N;
+  const int s0 = st * TS, t0 = tt * TS;
+  load_tile(sC, ldn, TS, n4(N) / 4, cm + base + s0 * brow, brow,
+            min(Q - s0, S - c0 - s0), N, d.vec_bc);
+  load_tile(sB, ldn, TS, n4(N) / 4, bm + base + t0 * brow, brow,
+            min(Q - t0, S - c0 - t0), N, d.vec_bc);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
 
-  const int ntiles = (Q + TS - 1) / TS;
-  for (int st = 0; st < ntiles; ++st) {
-    __syncthreads();
-    load_rows(sC, cc, brow, c0, st * TS, Q, S, N, ldn, d.vec_bc);
-    for (int tt = 0; tt <= st; ++tt) {
-      if (tt) __syncthreads();
-      load_rows(sB, bb, brow, c0, tt * TS, Q, S, N, ldn, d.vec_bc);
-      __syncthreads();
-      float sc[4][4];
+  float sc[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-      for (int n = 0; n < n4(N); n += 4) {
-        float4 cv[4], bv[4];
+    for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+  for (int n = 0; n < n4(N); n += 4) {
+    float4 cv[4], bv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          cv[i] = *reinterpret_cast<const float4*>(&sC[(ty * 4 + i) * ldn + n]);
+    for (int i = 0; i < 4; ++i)
+      cv[i] = *reinterpret_cast<const float4*>(&sC[(ty * 4 + i) * ldn + n]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          bv[j] = *reinterpret_cast<const float4*>(&sB[(tx + 16 * j) * ldn + n]);
+    for (int j = 0; j < 4; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(&sB[(tx + 16 * j) * ldn + n]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float s = sc[i][j];
-            s = fmaf(cv[i].x, bv[j].x, s);
-            s = fmaf(cv[i].y, bv[j].y, s);
-            s = fmaf(cv[i].z, bv[j].z, s);
-            s = fmaf(cv[i].w, bv[j].w, s);
-            sc[i][j] = s;
-          }
+      for (int j = 0; j < 4; ++j) {
+        float s = sc[i][j];
+        s = fmaf(cv[i].x, bv[j].x, s);
+        s = fmaf(cv[i].y, bv[j].y, s);
+        s = fmaf(cv[i].z, bv[j].z, s);
+        s = fmaf(cv[i].w, bv[j].w, s);
+        sc[i][j] = s;
       }
+  }
+  float* out = cb + (((long long)b * G + g) * d.nc + ci) * Q * Q;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = st * TS + ty * 4 + i;
-        if (s >= Q) continue;
+  for (int i = 0; i < 4; ++i) {
+    const int s = s0 + ty * 4 + i;
+    if (s >= Q) continue;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t = tt * TS + tx + 16 * j;
-          if (t < Q) out[(long long)s * Q + t] = sc[i][j];
-        }
-      }
+    for (int j = 0; j < 4; ++j) {
+      const int t = t0 + tx + 16 * j;
+      if (t < Q) out[(long long)s * Q + t] = sc[i][j];
     }
   }
 }
 
-template <int NTT>
+// ---- 2. chunk cumsum and chunk state --------------------------------------
+// Block (chunk, h * ptiles + pt, b).  The state tile is (n, p): thread
+// (ty, tx) owns n = NI ty + i and p = p0 + 4 tx + j; columns of b past N load
+// as zeros.
 __global__ void __launch_bounds__(NT)
-ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ a_log, const float* __restrict__ bm,
-                const float* __restrict__ cm, const float* __restrict__ cb,
-                float* __restrict__ y, float* __restrict__ state, Dims d) {
+ssd_chunk_state_kernel(const float* __restrict__ x,
+                       const float* __restrict__ dt,
+                       const float* __restrict__ a_log,
+                       const float* __restrict__ bm, float* __restrict__ cum,
+                       float* __restrict__ states, Dims d) {
+  constexpr int LDB = 16 * NI;
+  const int S = d.S, H = d.H, P = d.P, N = d.N, G = d.G, Q = d.Q;
+  extern __shared__ float4 smem4[];
+  float* sX = reinterpret_cast<float*>(smem4);   // 2 x (TK, TS)
+  float* sB = sX + 2 * TK * TS;                  // 2 x (TK, LDB)
+  float* sDt = sB + 2 * TK * LDB;                // (Q,)
+  float* sCum = sDt + Q;                         // (Q,)
+  float* sW = sCum + Q;                          // (Q,)
+  float* sWarp = sW + Q;                         // (8,)
+
+  const int ci = blockIdx.x, c0 = ci * Q, b = blockIdx.z;
+  const int np = ptiles(P), h = blockIdx.y / np, pt = blockIdx.y % np;
+  const int p0 = pt * TS, pw = min(TS, P - p0);
+  const int g = h / (H / G);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const long long xrow = (long long)H * P, brow = (long long)G * N;
+  const float* xb = x + ((long long)b * S + c0) * xrow + (long long)h * P + p0;
+  const float* bb = bm + ((long long)b * S + c0) * brow + (long long)g * N;
+  const int ntk = (Q + TK - 1) / TK;
+
+  const auto issue = [&](int k) {
+    const int t0 = k * TK, valid = min(Q - t0, S - c0 - t0);
+    load_tile(sX + (k & 1) * TK * TS, TS, TK, TS / 4, xb + t0 * xrow, xrow,
+              valid, pw, d.vec_x);
+    load_tile(sB + (k & 1) * TK * LDB, LDB, TK, LDB / 4, bb + t0 * brow, brow,
+              valid, N, d.vec_bc);
+    cp_async_commit();
+  };
+  issue(0);                  // in flight during the scan
+
+  const float a = -expf(a_log[h]);
+  for (int t = tid; t < Q; t += NT)
+    sDt[t] = c0 + t < S ? dt[((long long)b * S + c0 + t) * H + h] : 0.f;
+  __syncthreads();
+  block_cumsum(sCum, sDt, a, Q, sWarp);
+  const float cum_last = sCum[Q - 1];
+  float* cumc = cum + ((long long)b * d.nc + ci) * Q * H + h;
+  for (int t = tid; t < Q; t += NT) {
+    if (pt == 0) cumc[(long long)t * H] = sCum[t];
+    sW[t] = sDt[t] * expf(cum_last - sCum[t]);
+  }
+
+  float acc[NI][4];
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k = 0; k < ntk; ++k) {
+    if (k + 1 < ntk) issue(k + 1);
+    else cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* cx = sX + (k & 1) * TK * TS;
+    const float* cbt = sB + (k & 1) * TK * LDB;
+    const float* w = sW + k * TK;
+    const int rows = min(TK, Q - k * TK);
+    for (int t = 0; t < rows; ++t) {
+      const float wt = w[t];
+      const float4 xr = *reinterpret_cast<const float4*>(&cx[t * TS + 4 * tx]);
+      const float xv[4] = {xr.x * wt, xr.y * wt, xr.z * wt, xr.w * wt};
+      float bv[NI];
+#pragma unroll
+      for (int i = 0; i < NI; i += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(&cbt[t * LDB + ty * NI + i]);
+        bv[i] = v.x;
+        bv[i + 1] = v.y;
+        bv[i + 2] = v.z;
+        bv[i + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < NI; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(bv[i], xv[j], acc[i][j]);
+    }
+    __syncthreads();          // before the copy after next overwrites
+  }
+
+  float* out = states + (((long long)b * d.nc + ci) * H + h) * N * P + p0;
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const int n = ty * NI + i;
+    if (n < N) store4(out + (long long)n * P, 4 * tx, pw, acc[i], d.vec_x);
+  }
+}
+
+// ---- 3. state passing -----------------------------------------------------
+// Thread e = (n, p) of head (blockIdx.y, blockIdx.z).
+__global__ void __launch_bounds__(NT)
+ssd_state_passing_kernel(const float* __restrict__ src,
+                         float* __restrict__ h_in,
+                         const float* __restrict__ cum,
+                         float* __restrict__ state, Dims d) {
+  const int H = d.H, P = d.P, N = d.N, Q = d.Q, nc = d.nc;
+  const int e = blockIdx.x * NT + threadIdx.x, h = blockIdx.y, b = blockIdx.z;
+  if (e >= N * P) return;
+  const long long step = (long long)H * N * P;   // one chunk further
+  const long long off = ((long long)b * nc * H + h) * N * P + e;
+  const float* last = cum + (long long)b * nc * Q * H + (long long)(Q - 1) * H + h;
+  float carry = 0.f;
+  for (int c0 = 0; c0 < nc; c0 += 8) {
+    float s[8], dec[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int c = c0 + k;
+      s[k] = c < nc ? src[off + c * step] : 0.f;
+      dec[k] = c < nc ? expf(last[(long long)c * Q * H]) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (c0 + k >= nc) break;
+      h_in[off + (c0 + k) * step] = carry;
+      carry = __fadd_rn(__fmul_rn(carry, dec[k]), s[k]);
+    }
+  }
+  const int n = e / P, p = e - n * P;
+  state[(((long long)b * H + h) * P + p) * N + n] = carry;
+}
+
+// ---- 4. chunk scan --------------------------------------------------------
+// Block (rev(st) * ptiles + pt, chunk, b * H + h).  Thread (ty, tx) owns rows
+// s = s0 + 4 ty + i and columns p = p0 + 4 tx + j.
+__global__ void __launch_bounds__(NT)
+ssd_chunk_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                      const float* __restrict__ cm,
+                      const float* __restrict__ cb,
+                      const float* __restrict__ cum,
+                      const float* __restrict__ h_in, float* __restrict__ y,
+                      Dims d) {
   const int S = d.S, H = d.H, P = d.P, N = d.N, G = d.G, Q = d.Q;
   const int ldn = n4(N) + 4;
   extern __shared__ float4 smem4[];
-  float* sH = reinterpret_cast<float*>(smem4);   // (PL, ldn) state slice
-  float* sT = sH + PL * ldn;                     // (TS, ldn) C or B tile
-  float* sX = sT + TS * ldn;                     // (TS, PL) x*dt tile
-  float* sS = sX + TS * PL;                      // (TS, LDS) scores tile
-  float* sDt = sS + TS * LDS;                    // (Q,)
+  float* sU = reinterpret_cast<float*>(smem4);   // union of the two phases:
+  float* sC = sU;                                //   (TS, ldn) C rows
+  float* sH = sC + TS * ldn;                     //   (n4(N), TS) h_in^T
+  float* sX = sU;                                //   2 x (TS, TS) x rows
+  float* sW = sX + 2 * TS * TS;                  //   (TS, LDW) scores
+  const int u_len = max(TS * ldn + n4(N) * TS, 2 * TS * TS + TS * LDW);
+  float* sDt = sU + u_len;                       // (Q,)
   float* sCum = sDt + Q;                         // (Q,)
 
+  const int np = ptiles(P), nq = qtiles(Q);
+  const int st = nq - 1 - blockIdx.x / np, pt = blockIdx.x % np;
+  const int ci = blockIdx.y, c0 = ci * Q;
+  const int b = blockIdx.z / H, h = blockIdx.z % H, g = h / (H / G);
+  const int s0 = st * TS, p0 = pt * TS, pw = min(TS, P - p0);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int h = blockIdx.x, b = blockIdx.y, p0 = blockIdx.z * PL;
-  const int g = h / (H / G);
-  const float a = -expf(a_log[h]);
   const long long xrow = (long long)H * P, brow = (long long)G * N;
-  const float* xb = x + (long long)b * S * xrow + (long long)h * P + p0;
-  const float* dtb = dt + (long long)b * S * H + h;
-  const float* bb = bm + (long long)b * S * brow + (long long)g * N;
-  const float* cc = cm + (long long)b * S * brow + (long long)g * N;
-  const float* cbb = cb + ((long long)b * G + g) * d.nc * Q * Q;
-  float* yb = y + (long long)b * S * xrow + (long long)h * P + p0;
-  const int pw = min(PL, P - p0);               // this block's columns of P
+  const float* xb = x + ((long long)b * S + c0) * xrow + (long long)h * P + p0;
 
-  for (int e = tid; e < PL * ldn; e += NT) sH[e] = 0.f;
+  load_tile(sC, ldn, TS, n4(N) / 4,
+            cm + ((long long)b * S + c0 + s0) * brow + (long long)g * N, brow,
+            min(Q - s0, S - c0 - s0), N, d.vec_bc);
+  load_tile(sH, TS, n4(N), TS / 4,
+            h_in + (((long long)b * d.nc + ci) * H + h) * N * P + p0, P, N,
+            pw, d.vec_x);
+  cp_async_commit();
+  const float* cumc = cum + ((long long)b * d.nc + ci) * Q * H + h;
+  for (int t = tid; t < Q; t += NT) {
+    sDt[t] = c0 + t < S ? dt[((long long)b * S + c0 + t) * H + h] : 0.f;
+    sCum[t] = cumc[(long long)t * H];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 
-  const int ntiles = (Q + TS - 1) / TS;
-  for (int ci = 0; ci < d.nc; ++ci) {
-    const int c0 = ci * Q;
-    const float* cbc = cbb + (long long)ci * Q * Q;
-    __syncthreads();          // the previous chunk is done with every tile
-    for (int t = tid; t < Q; t += NT)
-      sDt[t] = c0 + t < S ? dtb[(long long)(c0 + t) * H] : 0.f;
-    __syncthreads();
-    if (tid < 32) {           // cum = inclusive cumsum of dt * a, one warp
-      const int per = (Q + 31) / 32, lo = tid * per, hi = min(Q, lo + per);
-      float run = 0.f;
-      for (int t = lo; t < hi; ++t) {
-        run += sDt[t] * a;
-        sCum[t] = run;
-      }
-      float incl = run;
+  // inter-chunk: exp(cum_s) C_s . h_in
+  float acc[4][4];
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float up = __shfl_up_sync(0xffffffffu, incl, o);
-        if (tid >= o) incl += up;
-      }
-      const float before = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (tid > 0)
-        for (int t = lo; t < hi; ++t) sCum[t] += before;
-    }
-    __syncthreads();
-    const float cum_last = sCum[Q - 1];
-
-    for (int st = 0; st < ntiles; ++st) {
-      const int s0 = st * TS;
-      load_rows(sT, cc, brow, c0, s0, Q, S, N, ldn, d.vec_bc);
-      __syncthreads();
-
-      // inter-chunk: acc = exp(cum_s) * C_s . h_in; rows 4*ty + i, column tx
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int n = 0; n < n4(N); n += 4) {
-        const float4 hv = *reinterpret_cast<const float4*>(&sH[tx * ldn + n]);
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 cv =
-              *reinterpret_cast<const float4*>(&sT[(ty * 4 + i) * ldn + n]);
-          float s = acc[i];
-          s = fmaf(cv.x, hv.x, s);
-          s = fmaf(cv.y, hv.y, s);
-          s = fmaf(cv.z, hv.z, s);
-          s = fmaf(cv.w, hv.w, s);
-          acc[i] = s;
-        }
-      }
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int n = 0; n < n4(N); n += 4) {
+    float4 cv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = s0 + ty * 4 + i;
-        acc[i] *= s < Q ? expf(sCum[s]) : 0.f;
-      }
-
-      // intra-chunk: acc += (C.B^T * exp(cum_s - cum_t) [t <= s]) . xdt_t
-      for (int tt = 0; tt <= st; ++tt) {
-        const int t0 = tt * TS;
-        load_xdt(sX, xb, xrow, sDt, sCum, cum_last, false, c0, t0, Q, S, pw,
-                 d.vec_x);
+    for (int i = 0; i < 4; ++i)
+      cv[i] = *reinterpret_cast<const float4*>(&sC[(ty * 4 + i) * ldn + n]);
+    float4 hv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int s = s0 + ty * 4 + i;
+    for (int k = 0; k < 4; ++k)
+      hv[k] = *reinterpret_cast<const float4*>(&sH[(n + k) * TS + 4 * tx]);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int t = t0 + tx + 16 * j;
-            sS[(ty * 4 + i) * LDS + tx + 16 * j] =
-                (t <= s && s < Q)
-                    ? cbc[(long long)s * Q + t] * expf(sCum[s] - sCum[t])
-                    : 0.f;
-          }
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int t = 0; t < TS; t += 4) {
-          float4 w4[4];
+    for (int i = 0; i < 4; ++i) {
+      const float cvi[4] = {cv[i].x, cv[i].y, cv[i].z, cv[i].w};
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            w4[i] = *reinterpret_cast<const float4*>(&sS[(ty * 4 + i) * LDS + t]);
-          const float x0 = sX[(t + 0) * PL + tx], x1 = sX[(t + 1) * PL + tx];
-          const float x2 = sX[(t + 2) * PL + tx], x3 = sX[(t + 3) * PL + tx];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float s = acc[i];
-            s = fmaf(w4[i].x, x0, s);
-            s = fmaf(w4[i].y, x1, s);
-            s = fmaf(w4[i].z, x2, s);
-            s = fmaf(w4[i].w, x3, s);
-            acc[i] = s;
-          }
-        }
-        __syncthreads();      // before the next tile overwrites sX, sS
-      }
-
-      if (tx < pw) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int s = s0 + ty * 4 + i, pos = c0 + s;
-          if (s < Q && pos < S) yb[pos * xrow + tx] = acc[i];
-        }
-      }
-    }
-
-    // state: h = exp(cum_last) h_in + sum_t exp(cum_last - cum_t) xdt_t b_t^T;
-    // this thread owns row p = ty, columns n = tx + 16 j
-    float hacc[NTT];
-#pragma unroll
-    for (int j = 0; j < NTT; ++j) hacc[j] = 0.f;
-    for (int tt = 0; tt < ntiles; ++tt) {
-      const int t0 = tt * TS;
-      load_rows(sT, bb, brow, c0, t0, Q, S, N, ldn, d.vec_bc);
-      load_xdt(sX, xb, xrow, sDt, sCum, cum_last, true, c0, t0, Q, S, pw,
-               d.vec_x);
-      __syncthreads();
-#pragma unroll 4
-      for (int t = 0; t < TS; ++t) {
-        const float xv = sX[t * PL + ty];
-#pragma unroll
-        for (int j = 0; j < NTT; ++j)
-          hacc[j] = fmaf(xv, sT[t * ldn + tx + 16 * j], hacc[j]);
-      }
-      __syncthreads();
-    }
-    const float chunk_decay = expf(cum_last);
-    if (ty < pw) {
-#pragma unroll
-      for (int j = 0; j < NTT; ++j) {
-        const int n = tx + 16 * j;
-        if (n < N) sH[ty * ldn + n] = chunk_decay * sH[ty * ldn + n] + hacc[j];
-      }
+      for (int k = 0; k < 4; ++k) fma4(acc[i], cvi[k], hv[k]);
     }
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = s0 + ty * 4 + i;
+    const float f = s < Q ? expf(sCum[s]) : 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] *= f;
+  }
+  __syncthreads();            // sC and sH are done: the union turns over
 
-  __syncthreads();
-  float* stb = state + (((long long)b * H + h) * P + p0) * N;
-  for (int e = tid; e < pw * N; e += NT) {
-    const int p = e / N, n = e - p * N;
-    stb[e] = sH[p * ldn + n];
+  // intra-chunk: (C.B^T * exp(cum_s - cum_t) dt_t [t <= s]) . x_t
+  const float* cbc = cb + ((((long long)b * G + g) * d.nc + ci) * Q) * Q;
+  const auto issue = [&](int tt) {
+    const int t0 = tt * TS;
+    load_tile(sX + (tt & 1) * TS * TS, TS, TS, TS / 4, xb + t0 * xrow, xrow,
+              min(Q - t0, S - c0 - t0), pw, d.vec_x);
+    cp_async_commit();
+  };
+  issue(0);
+  for (int tt = 0; tt <= st; ++tt) {
+    const int t0 = tt * TS;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = s0 + ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = t0 + tx + 16 * j;
+        sW[(ty * 4 + i) * LDW + tx + 16 * j] =
+            (t <= s && s < Q)
+                ? cbc[(long long)s * Q + t] * expf(sCum[s] - sCum[t]) * sDt[t]
+                : 0.f;
+      }
+    }
+    if (tt < st) issue(tt + 1);
+    else cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* cx = sX + (tt & 1) * TS * TS;
+#pragma unroll 4
+    for (int t = 0; t < TS; t += 4) {
+      float4 w4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w4[i] = *reinterpret_cast<const float4*>(&sW[(ty * 4 + i) * LDW + t]);
+      float4 xv[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        xv[k] = *reinterpret_cast<const float4*>(&cx[(t + k) * TS + 4 * tx]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float wi[4] = {w4[i].x, w4[i].y, w4[i].z, w4[i].w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) fma4(acc[i], wi[k], xv[k]);
+      }
+    }
+    __syncthreads();          // before sW and the next x buffer are rewritten
+  }
+
+  float* yb = y + ((long long)b * S + c0) * xrow + (long long)h * P + p0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = s0 + ty * 4 + i;
+    if (s < Q && c0 + s < S)
+      store4(yb + (long long)s * xrow, 4 * tx, pw, acc[i], d.vec_x);
   }
 }
 
-template <int NTT>
-int launch_scan(const float* x, const float* dt, const float* a_log,
-                const float* b, const float* c, const float* cb, float* y,
-                float* state, int B, const Dims& d, cudaStream_t stream) {
-  const size_t smem = scan_smem_bytes(d.N, d.Q);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<NTT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(d.H, B, (d.P + PL - 1) / PL);
-  ssd_scan_kernel<NTT><<<grid, NT, smem, stream>>>(x, dt, a_log, b, c, cb, y,
-                                                   state, d);
-  return (int)cudaGetLastError();
+template <typename K>
+cudaError_t set_smem(K kernel, size_t floats) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(floats * sizeof(float)));
+}
+
+bool aligned(const float* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
 }  // namespace
 
-// Shared memory of the larger of the two kernels, for the wrapper's check.
+// Shared memory of the largest of the kernels, for the wrapper's check.
 extern "C" size_t ssd_scan_smem_bytes(int N, int Q) {
-  const size_t a = cb_smem_bytes(N), b = scan_smem_bytes(N, Q);
-  return a > b ? a : b;
+  size_t m = cb_smem(N);
+  if (state_smem(Q) > m) m = state_smem(Q);
+  if (scan_smem(N, Q) > m) m = scan_smem(N, Q);
+  return m * sizeof(float);
 }
 
 // Q is the chunk length, min(chunk, S), as the TPU kernel's wrapper takes
-// it; cb is a (B, G, ceil(S/Q), Q, Q) fp32 scratch.  Launches the C.B^T
-// kernel, then the scan, on `stream`.  Returns a cudaError_t code (0 =
-// launched).
+// it.  Scratch: cb (B, G, nc, Q, Q), cum (B, nc, Q, H), cstate and h_in
+// (B, nc, H, N, P), nc = ceil(S / Q).  Launches the four kernels on `stream`.  Returns a
+// cudaError_t code (0 = launched).
 extern "C" int ssd_scan_fwd(const float* x, const float* dt,
                             const float* a_log, const float* b,
-                            const float* c, float* cb, float* y, float* state,
-                            int B, int S, int H, int P, int G, int N, int Q,
-                            cudaStream_t stream) {
+                            const float* c, float* cb, float* cum,
+                            float* cstate, float* h_in, float* y,
+                            float* state, int B, int S, int H, int P, int G,
+                            int N, int Q, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G || P <= 0 || N <= 0 ||
       N > 128 || Q <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const auto aligned = [](const float* ptr) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-  };
   const Dims d{S, H, P, N, G, Q, (S + Q - 1) / Q,
                N % 4 == 0 && aligned(b) && aligned(c),
-               P % 4 == 0 && aligned(x)};
-  const size_t cb_smem = cb_smem_bytes(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_cb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)cb_smem);
+               P % 4 == 0 && aligned(x) && aligned(h_in) && aligned(y) &&
+                   aligned(cstate)};
+  const int nq = qtiles(Q), np = ptiles(P);
+
+  cudaError_t err = set_smem(ssd_cb_kernel, cb_smem(N));
   if (err != cudaSuccess) return (int)err;
-  ssd_cb_kernel<<<dim3(d.nc, G, B), NT, cb_smem, stream>>>(b, c, cb, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int ntt = (N + 15) / 16;
-  if (ntt <= 1) return launch_scan<1>(x, dt, a_log, b, c, cb, y, state, B, d, stream);
-  if (ntt <= 2) return launch_scan<2>(x, dt, a_log, b, c, cb, y, state, B, d, stream);
-  if (ntt <= 4) return launch_scan<4>(x, dt, a_log, b, c, cb, y, state, B, d, stream);
-  return launch_scan<8>(x, dt, a_log, b, c, cb, y, state, B, d, stream);
+  ssd_cb_kernel<<<dim3(nq * (nq + 1) / 2, d.nc, B * G), NT,
+                  cb_smem(N) * sizeof(float), stream>>>(b, c, cb, d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  if ((err = set_smem(ssd_chunk_state_kernel, state_smem(Q))) != cudaSuccess)
+    return (int)err;
+  ssd_chunk_state_kernel<<<dim3(d.nc, H * np, B), NT,
+                           state_smem(Q) * sizeof(float), stream>>>(
+      x, dt, a_log, b, cum, cstate, d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  ssd_state_passing_kernel<<<dim3((N * P + NT - 1) / NT, H, B), NT, 0,
+                             stream>>>(cstate, h_in, cum, state, d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  if ((err = set_smem(ssd_chunk_scan_kernel, scan_smem(N, Q))) != cudaSuccess)
+    return (int)err;
+  ssd_chunk_scan_kernel<<<dim3(nq * np, d.nc, B * H), NT,
+                          scan_smem(N, Q) * sizeof(float), stream>>>(
+      x, dt, c, cb, cum, h_in, y, d);
+  return (int)cudaGetLastError();
 }

@@ -36,6 +36,13 @@ QUANT_CASES = [((64, 128), 0.005), ((640, 16), 0.005), ((37, 80), 0.01),
                ((7,), 0.1), ((2, 4), 0.5)]
 ATTN_CASES = [(4, 10, 128, 1), (5, 8, 128, 4), (3, 5, 32, 2)]
 PROJ_CASES = [(37, 80, 80), (19, 256, 256), (9, 1521, 1521)]
+# the kernel's tiling edges: row counts below one tile and ragged (1, 37,
+# 129), a full S3D stripe, Dout != D on the resident path (80 -> 48), ragged
+# widths on the tiled path (37 -> 100, D and Dout not multiples of 4), the
+# tiled path at E3SM's and XGC's widths over several row tiles
+PROJ_KERNEL_EDGES = [(1, 80, 80), (129, 80, 80), (37120, 80, 80),
+                     (37, 80, 48), (101, 37, 100), (300, 256, 256),
+                     (130, 1521, 1521)]
 
 
 @pytest.fixture
@@ -186,7 +193,7 @@ def test_block_attention_kernel_matches_plain(cuda_device, b, n, d, heads):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,dout", PROJ_CASES)
+@pytest.mark.parametrize("n,d,dout", PROJ_CASES + PROJ_KERNEL_EDGES)
 def test_gae_project_kernel_matches_plain(cuda_device, n, d, dout):
     r, u = (torch.from_numpy(a).to(cuda_device) for a in _proj_inputs(n, d, dout))
     for g, w in zip(t_gp.gae_project(r, u), t_gp.gae_project_plain(r, u)):

@@ -49,6 +49,13 @@ FA_MASKS = [(True, 0), (False, 0), (True, 64)]
 SSD_CASES = [(2, 64, 4, 16, 1, 8, 16), (1, 100, 2, 8, 2, 4, 32),
              (1, 128, 8, 32, 1, 16, 64), (3, 32, 2, 64, 2, 128, 16),
              (1, 300, 4, 64, 2, 128, 256)]
+# the chunk-parallel kernel's edges: one chunk (S <= chunk), many chunks
+# (S 2048, chunk 64), B 2 with G 2, P 48 and N 6 (neither a multiple of a
+# tile), P over one tile of 64 with N 64, a chunk that is not a multiple of
+# the 64-row tile
+SSD_EDGE_CASES = [(1, 200, 4, 64, 1, 128, 256), (1, 2048, 4, 64, 1, 128, 64),
+                  (2, 256, 4, 64, 2, 128, 64), (1, 300, 4, 48, 2, 6, 64),
+                  (1, 130, 2, 80, 1, 64, 64), (1, 250, 2, 16, 1, 16, 100)]
 
 
 @pytest.fixture
@@ -118,7 +125,7 @@ def test_flash_plain_matches_jax_bf16(needs_jax):
                                    np.asarray(want, np.float32), **FA_BF16_TOL)
 
 
-@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES)
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES + SSD_EDGE_CASES)
 def test_ssd_plain_matches_jax(needs_jax, b, s, h, p, g, n, chunk):
     ins = _ssd_inputs(b, s, h, p, g, n)
     y, st = (a.numpy() for a in t_ssd.ssd(*(torch.from_numpy(a) for a in ins),
@@ -199,7 +206,7 @@ def test_flash_kernel_zeroes_rows_no_key_reaches(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES)
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES + SSD_EDGE_CASES)
 def test_ssd_kernel_matches_plain(cuda_device, b, s, h, p, g, n, chunk):
     ins = [torch.from_numpy(a).to(cuda_device)
            for a in _ssd_inputs(b, s, h, p, g, n)]
@@ -210,6 +217,20 @@ def test_ssd_kernel_matches_plain(cuda_device, b, s, h, p, g, n, chunk):
         # error that depends on the order the cumsum was taken in
         scale = max(1.0, want.abs().max().item())
         torch.testing.assert_close(got, want, atol=3e-4 * scale, rtol=3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES + SSD_EDGE_CASES)
+def test_ssd_kernel_phases_match_plain_phases(cuda_device, b, s, h, p, g, n,
+                                              chunk):
+    """Each CUDA kernel of the op against its plain phase, fed the kernel's
+    own upstream outputs, so that a mismatch names the phase."""
+    ins = [torch.from_numpy(a).to(cuda_device)
+           for a in _ssd_inputs(b, s, h, p, g, n)]
+    for name, got, want in t_ssd.phase_pairs(*ins, chunk=chunk):
+        scale = max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, atol=3e-4 * scale, rtol=3e-4,
+                                   msg=lambda m, name=name: f"{name}: {m}")
 
 
 @pytest.mark.cuda
