@@ -16,6 +16,11 @@ Phases, each reported on its own lines:
    times of the kernel, the plain version, one PyTorch library call where
    there is one, and the card's bound for the same work; ssd_scan's four
    CUDA kernels are also each held to their plain phase and timed by name;
+   flash_attention runs in fp32 and bf16 (tensor cores), and the gates of
+   the redesigned kernels hold: flash_attention bf16 at most 2.0x
+   ``scaled_dot_product_attention`` in turns, fp32 at most 2.0 ms and
+   faster than it, ssd_scan at most 0.72 ms, gae_project at most 1.10x
+   ``torch.matmul`` in turns;
 3. main path: the S3D configuration at full width on a synthetic
    58x50x160x160 field — seeded untrained weights, ``fit_basis``,
    ``compress`` at tau 0.5, write and read the ``.rba`` archive, ``decompress``
@@ -24,11 +29,15 @@ Phases, each reported on its own lines:
    the CPU;
 4. LM path, for qwen2-1.5b and mamba2-370m at full width with seeded
    weights: ``forward`` over 1 x 4096 random tokens (the prefill, with its
-   kernel launched once per layer), ``forward``'s last logits against the
+   kernel launched once per layer) in fp32 and then with
+   ``compute_dtype="bfloat16"``; the bf16 prefill's last 64 logits through
+   the kernel are held to those through its plain version (both against
+   the fp32 prefill's); ``forward``'s last logits against the
    serving engine's decode-step prefill on a 64-token prompt, the device
    time of one ``decode_step`` against its wall, and ``ServeEngine.serve``
    on 8 requests with raw KV and with ``kv_tau`` 0.05;
-5. one JSON line with every kernel's numbers, then the result line
+5. one JSON line with every kernel's numbers (one row per kernel and
+   dtype), then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the result line.  Without a CUDA
@@ -61,6 +70,12 @@ BF16_FLOPS = 989e12
 # redesign measured 0.92x, and the margin absorbs the rounds' spread.
 SSD_MAMBA2_MS_MAX = 0.72
 GAE_OVER_MATMUL_MAX = 1.10
+# flash_attention at the qwen2-1.5b prefill shape, as redesigned for this
+# card: in bf16 (tensor cores) at most 2.0x scaled_dot_product_attention's
+# median when the two are timed in turns (PR 12's SIMT kernel was 23x); in
+# fp32 at most 2.0 ms (PR 12's was 2.609 ms) and faster than SDPA in fp32.
+FA_BF16_OVER_SDPA_MAX = 2.0
+FA_F32_MS_MAX = 2.0
 
 TAU = 0.5
 KV_TAU = 0.05       # the LM serve run's per-token bound on the KV cache
@@ -158,15 +173,16 @@ def check_kernels(torch, dev) -> dict:
     rows = {}
 
     def row(name, source, replaces, err, ms, plain, lib, n_bytes, n_flops,
-            peak=FP32_FLOPS):
+            peak=FP32_FLOPS, dtype="float32"):
         b_ms, b_by = bound_ms(n_bytes, n_flops, peak)
-        if name not in rows:
-            rows[name] = {"name": name, "route": "cuda", "source": source,
-                          "replaces": replaces, "launches": 0,
-                          "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                          "bound_ms": b_ms, "bound_by": b_by,
-                          "library_ms": lib}
-        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+        if (name, dtype) not in rows:
+            rows[name, dtype] = {
+                "name": name, "dtype": dtype, "route": "cuda",
+                "source": source, "replaces": replaces, "launches": 0,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+        rows[name, dtype]["max_abs_err"] = max(
+            rows[name, dtype]["max_abs_err"], err)
         return b_ms, b_by
 
     def report(name, shape, err, t, t_plain, t_lib, b_ms, b_by):
@@ -251,50 +267,71 @@ def check_kernels(torch, dev) -> dict:
                 GAE_OVER_MATMUL_MAX)
 
     # flash_attention: the qwen2-1.5b prefill (B 1, S = T = 4096, H 12, KV 2,
-    # hd 128, causal) in fp32 and bf16, a window of 64, T > S (queries
-    # suffix-aligned), a ragged S.  The bound counts the live (q, k) pairs of
-    # the mask; the bf16 row is bound at the bf16 tensor-core peak.
-    for b, s_, t_, dtype, window in ((1, 4096, 4096, torch.float32, 0),
-                                     (1, 4096, 4096, torch.bfloat16, 0),
-                                     (1, 4096, 4096, torch.float32, 64),
-                                     (1, 1000, 4096, torch.float32, 0),
-                                     (1, 1000, 1000, torch.float32, 0)):
-        h, kvh, hd = 12, 2, 128
-        q = torch.randn(b, s_, h, hd, generator=gen, device=dev).to(dtype)
-        k = torch.randn(b, t_, kvh, hd, generator=gen, device=dev).to(dtype)
-        v = torch.randn(b, t_, kvh, hd, generator=gen, device=dev).to(dtype)
-        got = fa.flash_attention(q, k, v, causal=True, window=window)
-        # the kernel computes in fp32 and rounds once, so in bf16 it is held
-        # to the fp32 plain version on the same inputs, rounded to bf16: one
-        # bf16 rounding apart at most (8 significant bits, 2^-7 = 0.0078)
-        want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
-                                        causal=True, window=window).to(dtype)
-        tol = (dict(atol=1e-3, rtol=1e-2) if dtype == torch.bfloat16
-               else dict(atol=3e-5, rtol=3e-5))
-        torch.testing.assert_close(got.float(), want.float(), **tol)
-        err = (got.float() - want.float()).abs().max().item()
-        mask = fa.attention_mask(s_, t_, True, window, dev)
-        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        sdpa_mask = None if (window == 0 and s_ == t_) else mask
-        t = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True,
-                                                      window=window), iters=10)
-        t_plain = time_ms(torch, lambda: fa.flash_attention_plain(
-            q, k, v, causal=True, window=window), iters=10)
-        t_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=sdpa_mask, is_causal=sdpa_mask is None,
-            enable_gqa=True), iters=10)
-        live = int(mask.sum().item())
-        size = q.element_size()
-        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-        b_ms, b_by = row("flash_attention",
-                         "src/repro_torch/csrc/flash_attention.cu",
-                         "src/repro/kernels/flash_attention/kernel.py:29", err,
-                         t[0], t_plain[0], t_lib[0],
-                         size * (2 * q.numel() + 2 * k.numel()),
-                         b * h * live * 4 * hd, peak)
-        report("flash_attention", (b, s_, t_, h, kvh, hd, str(dtype)[6:],
-                                   f"window {window}"),
-               err, t, t_plain, t_lib, b_ms, b_by)
+    # hd 128, causal), a window of 64, T > S (queries suffix-aligned), a
+    # ragged S; each in fp32 (SIMT) and bf16 (tensor cores).  The bound
+    # counts the live (q, k) pairs of the mask, at the fp32 or bf16 peak.
+    # bf16 is held to the fp32 plain version on the same inputs, rounded to
+    # bf16: one bf16 rounding apart (8 significant bits, 2^-7 = 0.0078).
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s_, t_, window in ((1, 4096, 4096, 0), (1, 4096, 4096, 64),
+                                  (1, 1000, 4096, 0), (1, 1000, 1000, 0)):
+            h, kvh, hd = 12, 2, 128
+            q = torch.randn(b, s_, h, hd, generator=gen, device=dev).to(dtype)
+            k = torch.randn(b, t_, kvh, hd, generator=gen, device=dev).to(dtype)
+            v = torch.randn(b, t_, kvh, hd, generator=gen, device=dev).to(dtype)
+            got = fa.flash_attention(q, k, v, causal=True, window=window)
+            want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                            causal=True, window=window).to(dtype)
+            tol = (dict(atol=1e-3, rtol=1e-2) if dtype == torch.bfloat16
+                   else dict(atol=3e-5, rtol=3e-5))
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+            err = (got.float() - want.float()).abs().max().item()
+            mask = fa.attention_mask(s_, t_, True, window, dev)
+            qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            sdpa_mask = None if (window == 0 and s_ == t_) else mask
+
+            # bound now: the gates below call them after the loop has moved on
+            def kernel(q=q, k=k, v=v, window=window):
+                return fa.flash_attention(q, k, v, causal=True, window=window)
+
+            def library(qh=qh, kh=kh, vh=vh, sdpa_mask=sdpa_mask):
+                return F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=sdpa_mask,
+                    is_causal=sdpa_mask is None, enable_gqa=True)
+
+            t = time_ms(torch, kernel, iters=10)
+            t_plain = time_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, causal=True, window=window), iters=10)
+            t_lib = time_ms(torch, library, iters=10)
+            live = int(mask.sum().item())
+            dname = str(dtype)[6:]
+            b_ms, b_by = row("flash_attention",
+                             "src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention/kernel.py:29",
+                             err, t[0], t_plain[0], t_lib[0],
+                             q.element_size() * (2 * q.numel() + 2 * k.numel()),
+                             b * h * live * 4 * hd,
+                             BF16_FLOPS if dtype == torch.bfloat16
+                             else FP32_FLOPS, dname)
+            report("flash_attention", (b, s_, t_, h, kvh, hd, dname,
+                                       f"window {window}"),
+                   err, t, t_plain, t_lib, b_ms, b_by)
+            if (s_, t_, window) == (4096, 4096, 0):
+                main[dtype] = (kernel, library, t[0], t_lib[0])
+    # the gates of the redesign, at the qwen2-1.5b prefill shape
+    shape = (1, 4096, 4096, 12, 2, 128)
+    kernel, library, _, _ = main[torch.bfloat16]
+    _kernel_against_library(torch, "flash_attention bf16", shape, kernel,
+                            library, FA_BF16_OVER_SDPA_MAX)
+    _, _, t32, t32_lib = main[torch.float32]
+    print(f"kernel flash_attention float32 {shape}: {t32:.5f} ms (gate "
+          f"{FA_F32_MS_MAX} ms), scaled_dot_product_attention {t32_lib:.5f} "
+          f"ms", flush=True)
+    if t32 > FA_F32_MS_MAX or t32 >= t32_lib:
+        raise CheckFailed(f"flash_attention float32 {shape}: {t32:.5f} ms, "
+                          f"more than {FA_F32_MS_MAX} ms or not faster than "
+                          f"scaled_dot_product_attention's {t32_lib:.5f} ms")
 
     # ssd_scan: the mamba2-370m prefill (B 1, S 4096, H 32, P 64, G 1, N 128,
     # chunk 256), a ragged S, G = 2.  Inputs as the JAX kernel tests make
@@ -502,11 +539,64 @@ SERVE = dict(requests=8, slots=4, prompt=32, new=16, max_len=128)
 # but the last
 SERVE_STEPS = SERVE["requests"] * (SERVE["prompt"] + SERVE["new"] - 1)
 DECODE_STEPS = 16
+# the bf16 prefill's logits, through the kernel and through its plain
+# version, are compared with the fp32 prefill's on the last positions
+TAIL = 64
+
+
+def lm_prefill(torch, api, params, cfg, run, tokens, kernel,
+               counters) -> dict:
+    """``forward`` over ``tokens`` (the prefill) after a warm-up: wall and
+    tokens/s, launches of every counter, the device busy time of a profiled
+    repeat and the part of it in CUDA kernels whose name holds the kernel's
+    first word.  Fails unless the kernel launched once per layer and the
+    logits are finite and of the expected shape.  Returns the numbers and
+    the logits of the last ``TAIL`` positions in fp32."""
+    from torch.profiler import ProfilerActivity, profile
+
+    api.forward(params, cfg, run, tokens[:, :256])       # warm-up
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    logits = api.forward(params, cfg, run, tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.value for name, c in counters.items()}
+    if launches[kernel] != cfg.n_layers:
+        raise CheckFailed(f"{cfg.arch} forward ({run.compute_dtype}) launched "
+                          f"{kernel} {launches[kernel]} times, not once per "
+                          f"layer ({cfg.n_layers})")
+    if (tuple(logits.shape) != (1, tokens.shape[1], cfg.vocab)
+            or not torch.isfinite(logits).all()):
+        raise CheckFailed(f"{cfg.arch} forward ({run.compute_dtype}) gave "
+                          f"shape {tuple(logits.shape)} or non-finite logits")
+    tail = logits[:, -TAIL:].float().clone()
+    del logits
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        api.forward(params, cfg, run, tokens)
+        torch.cuda.synchronize()
+    busy = device_ms(torch, prof)
+    parts = device_ms_by_name(torch, prof, kernel.split("_")[0])
+    return dict(wall=wall, tokens_s=tokens.shape[1] / wall, busy=busy,
+                mine=sum(parts.values()), parts=parts, launches=launches,
+                tail=tail)
+
+
+def print_prefill(arch, kernel, dtype, r) -> None:
+    busy, mine = r["busy"], r["mine"]
+    print(f"lm {arch} prefill {dtype}: B 1 x S {PREFILL_TOKENS}, wall "
+          f"{r['wall']:.4f} s, {r['tokens_s']:.1f} tokens/s; profiled run: "
+          f"device busy {busy:.3f} ms, of it {kernel} {mine:.3f} ms "
+          f"({mine / busy if busy else 0.0:.4f} of it; by CUDA kernel: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in r["parts"].items())
+          + f"); launches {json.dumps(r['launches'])}", flush=True)
 
 
 def run_lm_path(torch, dev, counters) -> dict:
-    """Prefill, consistency and serving for each LM model; returns the
-    launches of each model's kernel in its prefill run."""
+    """Prefill (fp32, then bf16), consistency and serving for each LM model;
+    returns the launches of each model's kernel in its prefill runs, keyed
+    by (kernel, dtype)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -536,37 +626,36 @@ def run_lm_path(torch, dev, counters) -> dict:
         tokens = torch.randint(0, cfg.vocab, (1, PREFILL_TOKENS),
                                generator=gen, device=dev)
 
-        # 1. prefill: forward over 1 x 4096 tokens
-        api.forward(params, cfg, run, tokens[:, :256])       # warm-up
-        torch.cuda.synchronize()
-        reset()
-        t0 = time.perf_counter()
-        logits = api.forward(params, cfg, run, tokens)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read()
-        prefill_launches[kernel] = launches[kernel]
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            api.forward(params, cfg, run, tokens)
-            torch.cuda.synchronize()
-        busy = device_ms(torch, prof)
-        parts = device_ms_by_name(torch, prof, kernel.split("_")[0])
-        mine = sum(parts.values())
-        print(f"lm {arch} prefill: B 1 x S {PREFILL_TOKENS}, wall {wall:.4f} s, "
-              f"{PREFILL_TOKENS / wall:.1f} tokens/s; profiled run: device "
-              f"busy {busy:.3f} ms, of it {kernel} {mine:.3f} ms "
-              f"({mine / busy if busy else 0.0:.4f} of it; by CUDA kernel: " + ", ".join(
-                  f"{k} {v:.3f}" for k, v in parts.items()) + "); launches "
-              f"{json.dumps(launches)}", flush=True)
-        if launches[kernel] != cfg.n_layers:
-            raise CheckFailed(f"{arch} forward launched {kernel} "
-                              f"{launches[kernel]} times, not once per layer "
-                              f"({cfg.n_layers})")
-        if (tuple(logits.shape) != (1, PREFILL_TOKENS, cfg.vocab)
-                or not torch.isfinite(logits).all()):
-            raise CheckFailed(f"{arch} forward gave shape "
-                              f"{tuple(logits.shape)} or non-finite logits")
-        del logits
+        # 1. prefill: forward over 1 x 4096 tokens, fp32
+        r32 = lm_prefill(torch, api, params, cfg, run, tokens, kernel,
+                         counters)
+        print_prefill(arch, kernel, "float32", r32)
+        prefill_launches[kernel, "float32"] = r32["launches"][kernel]
+
+        # 1b. the same prefill in bf16 (the JAX package's deployment dtype),
+        # same fp32 params; then once more with the kernel's wrapper swapped
+        # for its plain version, to hold the kernel to it on the model path
+        run16 = RunConfig(compute_dtype="bfloat16")
+        r16 = lm_prefill(torch, api, params, cfg, run16, tokens, kernel,
+                         counters)
+        print_prefill(arch, kernel, "bfloat16", r16)
+        if kernel == "flash_attention":
+            prefill_launches[kernel, "bfloat16"] = r16["launches"][kernel]
+        tail_plain = _forward_plain(torch, api, params, cfg, run16, tokens,
+                                    kernel)
+        ref = r32["tail"]
+        e_kernel = (r16["tail"] - ref).abs().max().item()
+        e_plain = (tail_plain - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        limit = 1.5 * e_plain + 1e-3 * scale
+        print(f"lm {arch} prefill bf16 against fp32, last {TAIL} positions: "
+              f"max abs diff through {kernel} {e_kernel:.5f}, through its "
+              f"plain version {e_plain:.5f} (max |logit| {scale:.4f}; gate "
+              f"{limit:.5f} = 1.5 x plain + 1e-3 x max |logit|)", flush=True)
+        if not e_kernel <= limit:
+            raise CheckFailed(f"{arch} bf16 prefill through {kernel} is "
+                              f"{e_kernel} from fp32, more than {limit}")
+        del r32, r16, tail_plain, ref
 
         # 2. consistency: forward (kernel) against the engine's prefill
         prompt = tokens[:, :CONSISTENCY_PROMPT]
@@ -644,6 +733,24 @@ def run_lm_path(torch, dev, counters) -> dict:
         del params, eng
         torch.cuda.empty_cache()
     return prefill_launches
+
+
+def _forward_plain(torch, api, params, cfg, run, tokens, kernel):
+    """The last ``TAIL`` positions' fp32 logits of ``forward`` with the
+    kernel's wrapper swapped, for this call only, for its plain version."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as sd
+
+    mod, attr, plain = ((fa, "flash_attention", fa.flash_attention_plain)
+                        if kernel == "flash_attention"
+                        else (sd, "ssd", sd.ssd_plain))
+    wrapper = getattr(mod, attr)
+    setattr(mod, attr, plain)
+    try:
+        with torch.no_grad():
+            return api.forward(params, cfg, run, tokens)[:, -TAIL:].float()
+    finally:
+        setattr(mod, attr, wrapper)
 
 
 def _check_kv_quantize(torch, arch, caches) -> None:
@@ -727,14 +834,14 @@ def main() -> int:
                     "ssd_scan": sd.launches}
         launches = run_main_path(torch, dev, counters,
                                  ("quantize", "block_attention", "gae_project"))
-        launches = {name: launches[name] for name in
+        launches = {(name, "float32"): launches[name] for name in
                     ("quantize", "block_attention", "gae_project")}
         launches.update(run_lm_path(torch, dev, counters))
     except (CheckFailed, AssertionError) as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    for name, n in launches.items():
-        rows[name]["launches"] = n
+    for key, n in launches.items():
+        rows[key]["launches"] = n
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

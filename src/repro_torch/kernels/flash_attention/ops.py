@@ -6,7 +6,11 @@ Replaces the TPU kernel ``_attn_kernel`` (``flash_attention_fwd``,
 ``csrc/flash_attention.cu``; its note says what bounds it and how.
 
 ``flash_attention`` takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors; ``launches`` counts kernel launches only.
+kernel for CUDA tensors; ``launches`` counts kernel launches only.  The
+kernel has two paths, chosen by dtype alone: bfloat16 runs on the tensor
+cores (``wgmma``) for every head size in ``HEAD_DIMS`` and rounds p to
+bfloat16 before the P.V product, as FlashAttention does; float32 runs in
+fp32 FMA.
 
 One divergence, as in the JAX package: a query row that no key reaches
 (causal with S > T) gets zeros from the kernel, as from the TPU kernel, and a
@@ -98,6 +102,9 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_attention: kernel takes q, k, v that start "
+                         "on 16-byte boundaries (TMA and cp.async)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -205,8 +205,12 @@ def ssd(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor, c: Tensor, *,
     Returns (y (B,S,H,P), final_state (B,H,P,N) fp32)."""
     if x.device.type == "cpu":
         return ssd_plain(x, dt, a_log, b, c, chunk=chunk)
-    out = ssd_phases(x, dt, a_log, b, c, chunk=chunk)
-    return out.y, out.state
+    # As the TPU kernel does (src/repro/kernels/ssd_scan/kernel.py:40-44,
+    # :72): any input dtype is read as fp32, y comes back in x's dtype and
+    # the final state stays fp32.  The CUDA kernels take fp32, so a bf16
+    # x, b or c is cast here before the launch.
+    out = ssd_phases(*(t.float() for t in (x, dt, a_log, b, c)), chunk=chunk)
+    return out.y.to(x.dtype), out.state
 
 
 def phase_pairs(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor, c: Tensor, *,

@@ -145,6 +145,28 @@ def test_forward_matches_jax(pair):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
 
 
+def test_forward_bf16_matches_jax(pair):
+    """``compute_dtype="bfloat16"``, the JAX package's deployment dtype, in
+    both packages on the same params and tokens.  The two frameworks round
+    to bf16 (8 significant bits) at other places, so the logits are held to
+    a share of max |logit|: 3 % for the dense models and 5 % for mamba2,
+    whose SSD state carries the rounding through a longer recurrence.  The
+    port measured 1.6 % (qwen1.5), 1.2 % (qwen2, qwen3) and 2.9 % (mamba2),
+    under JAX's own bf16-against-fp32 difference on these inputs (1.9, 1.5,
+    1.4 and 3.0 %)."""
+    toks = _tokens(pair.cfg, (2, 24))
+    want = np.asarray(j_registry.get_model(pair.jcfg).forward(
+        pair.jparams, pair.jcfg, JRunConfig(compute_dtype="bfloat16"),
+        jnp.asarray(toks)), np.float32)
+    got = registry.get_model(pair.cfg).forward(
+        pair.params, pair.cfg, RunConfig(compute_dtype="bfloat16"),
+        torch.from_numpy(toks).long())
+    assert got.dtype == torch.bfloat16
+    share = 0.05 if pair.cfg.family == "ssm" else 0.03
+    diff = np.abs(got.float().numpy() - want).max()
+    assert diff <= share * np.abs(want).max(), (diff, np.abs(want).max())
+
+
 def test_decode_step_teacher_forcing_matches_jax(pair):
     toks = _tokens(pair.cfg, (2, 12), seed=3)
     japi, api = j_registry.get_model(pair.jcfg), registry.get_model(pair.cfg)
