@@ -1,16 +1,20 @@
 """Hyper-block self-attention: softmax(Q K^T / sqrt(d_h)) V per hyper-block.
 
 Replaces the TPU kernel ``_block_attn_kernel`` (``block_attention_fwd``,
-``src/repro/kernels/block_attention/kernel.py``).  The CUDA kernel is
-``csrc/block_attention.cu``; its note says what bounds it and how.
+``src/repro/kernels/block_attention/kernel.py``).  The CUDA kernels are in
+``csrc/block_attention.cu``; its note says what bounds them and how.
 
-``block_attention`` takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors; ``launches`` counts kernel launches only.
+``block_attention`` takes the plain version for CPU tensors and launches a
+kernel for CUDA tensors: fp32 or bf16 q, k, v, computed in fp32 and written
+in the input's dtype, as the TPU kernel does.  ``launch_plan`` is the shape
+rule that picks the kernel (the warp path, or the general path for what the
+warp path cannot take); ``launches`` counts kernel launches only.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -21,11 +25,57 @@ Tensor = torch.Tensor
 launches = build.LaunchCounter()
 
 _MAX_SMEM = 232448      # bytes of shared memory a block may use on Hopper
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The warp kernel's instantiations, as in csrc/block_attention.cu: (bytes of
+# an element, key rows a lane holds) -> the most query rows a warp holds.
+WARP_TILES = {(4, 2): 4, (4, 4): 8, (4, 5): 10, (4, 8): 10, (4, 10): 10,
+              (4, 16): 8,
+              (2, 2): 4, (2, 4): 8, (2, 5): 10, (2, 8): 8}
+# warps the launch aims for per SM (one per scheduler) when the batch is
+# small: a hyper-block's query rows are then split over several warps
+WARPS_PER_SM = 4
+
+
+class Launch(NamedTuple):
+    path: str          # "warp" or "general"
+    kpl: int = 0       # key rows a lane holds: the warp kernel's instantiation
+    qpw: int = 0       # query rows a warp owns
+    wph: int = 0       # warps a hyper-block
+
+
+def launch_plan(batch: int, n: int, dk: int, dv: int, heads: int,
+                dtype: torch.dtype, aligned: bool = True,
+                sms: int = 132) -> Launch:
+    """The kernel that takes these shapes, and the warp path's launch.
+
+    The warp path needs dk == dv == d, 16-byte rows split into d / VEC lanes
+    (VEC = 4 fp32 or 8 bf16) with d / VEC a power of two <= 32, heads of
+    whole lanes (d / heads a multiple of VEC), at most the largest
+    instantiation's key rows a lane, and 16-byte aligned pointers; anything
+    else takes the general path.
+    """
+    size = dtype.itemsize
+    vec = 16 // size
+    lanes = dk // vec
+    if (dk != dv or not aligned or dk % vec or lanes > 32
+            or lanes & (lanes - 1) or dk % heads or (dk // heads) % vec):
+        return Launch("general")
+    need = -(-n // (32 // lanes))
+    fits = sorted(kpl for s, kpl in WARP_TILES if s == size and kpl >= need)
+    if not fits:
+        return Launch("general")
+    kpl = fits[0]
+    qmax = WARP_TILES[size, kpl]
+    wph = max(-(-n // qmax), min(n, -(-WARPS_PER_SM * sms // max(batch, 1))))
+    qpw = -(-n // wph)
+    qpw = min(qmax, qpw + qpw % 2)      # the kernel runs query rows in pairs
+    return Launch("warp", kpl, qpw, -(-n // qpw))
 
 
 def block_attention_plain(q: Tensor, k: Tensor, v: Tensor,
                           heads: int = 1) -> Tensor:
-    """q/k: (..., n, dk), v: (..., n, dv) -> (..., n, dv); softmax in fp32."""
+    """q/k: (..., n, dk), v: (..., n, dv) -> (..., n, dv); softmax in fp32,
+    the products in the input's dtype (as ``ref.py``)."""
     *lead, n, dk = q.shape
     dv = v.shape[-1]
     hq = q.reshape(*lead, n, heads, dk // heads)
@@ -38,9 +88,12 @@ def block_attention_plain(q: Tensor, k: Tensor, v: Tensor,
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.block_attention_f32.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.block_attention_f32.restype = ctypes.c_int
+    lib.block_attention_warp.argtypes = [ctypes.c_int] + [
+        ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.block_attention_warp.restype = ctypes.c_int
+    lib.block_attention_general.argtypes = [ctypes.c_int] + [
+        ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.block_attention_general.restype = ctypes.c_int
 
 
 def block_attention(q: Tensor, k: Tensor, v: Tensor, heads: int = 1) -> Tensor:
@@ -50,8 +103,9 @@ def block_attention(q: Tensor, k: Tensor, v: Tensor, heads: int = 1) -> Tensor:
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"block_attention: q, k, v on {q.device}, {k.device}, "
                          f"{v.device}; the kernel takes one CUDA device")
-    if not (q.dtype == k.dtype == v.dtype == torch.float32):
-        raise TypeError("block_attention: kernel takes float32 q, k, v")
+    if not (q.dtype == k.dtype == v.dtype and q.dtype in _DTYPES):
+        raise TypeError(f"block_attention: kernel takes float32 or bfloat16 "
+                        f"q, k, v, not {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("block_attention: kernel takes contiguous q, k, v")
     *lead, n, dk = q.shape
@@ -62,17 +116,27 @@ def block_attention(q: Tensor, k: Tensor, v: Tensor, heads: int = 1) -> Tensor:
     if heads < 1 or dk % heads or dv % heads:
         raise ValueError(f"block_attention: heads={heads} must divide "
                          f"dk={dk} and dv={dv}")
-    smem = 4 * (n * (dk + 1) * 2 + n * (dv + 1) + heads * n * n)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"block_attention: n={n} needs {smem} bytes of "
-                         f"shared memory, more than {_MAX_SMEM}")
     batch = math.prod(lead)
+    aligned = not any(x.data_ptr() % 16 for x in (q, k, v))
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = launch_plan(batch, n, dk, dv, heads, q.dtype, aligned, sms)
+    if plan.path == "general":
+        smem = 4 * (n * (dk + 1) * 2 + n * (dv + 1) + heads * n * n)
+        if smem > _MAX_SMEM:
+            raise ValueError(f"block_attention: n={n} needs {smem} bytes of "
+                             f"shared memory, more than {_MAX_SMEM}")
     out = torch.empty(*lead, n, dv, dtype=q.dtype, device=q.device)
     lib = build.library("block_attention", _declare)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
-        status = lib.block_attention_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            batch, n, dk, dv, heads, build.stream_ptr(q.device))
-    build.check(status, "block_attention_f32")
+        stream = build.stream_ptr(q.device)
+        if plan.path == "warp":
+            status = lib.block_attention_warp(
+                _DTYPES[q.dtype], *ptrs, batch, n, dk, heads, plan.kpl,
+                plan.qpw, plan.wph, stream)
+        else:
+            status = lib.block_attention_general(
+                _DTYPES[q.dtype], *ptrs, batch, n, dk, dv, heads, stream)
+    build.check(status, f"block_attention_{plan.path}")
     launches.add()
     return out

@@ -6,11 +6,17 @@ in interpret mode.  On a card (``-m cuda``) each CUDA kernel is held against
 its plain version.
 
 Tolerances: quantize is exact (elementwise, true division and half-to-even
-rounding on both sides); block_attention 1e-5 (fp32 sums in another order);
+rounding on both sides); block_attention 1e-5 in fp32 (sums in another
+order); in bf16 5e-2 against the bf16 plain version and the JAX package's
+bf16 (``test_kernels.py``'s ``_tol``: the plain version rounds its products
+to bf16, the kernel computes in fp32), and 8e-3, one bf16 ulp, against the
+fp32 plain version on the same bf16 inputs with its output rounded to bf16;
 gae_project 3e-5, as ``test_kernels.py`` uses, for the summation order at
 D = 1521.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import pytest
@@ -35,6 +41,16 @@ from repro_torch.kernels.quantize import ops as t_qz
 QUANT_CASES = [((64, 128), 0.005), ((640, 16), 0.005), ((37, 80), 0.01),
                ((7,), 0.1), ((2, 4), 0.5)]
 ATTN_CASES = [(4, 10, 128, 1), (5, 8, 128, 4), (3, 5, 32, 2)]
+# the JAX kernel sweep (test_kernels.py) and the main path's shapes: S3D's
+# stripe and fit_basis's pass over the field, E3SM's and XGC's stripes
+ATTN_SWEEP = [(37, 10, 128, 1), (256, 8, 64, 4), (5, 5, 32, 2), (1, 2, 16, 1),
+              (300, 16, 128, 8)]
+ATTN_PATH = [(64, 10, 128, 1), (1600, 10, 128, 1), (64, 5, 128, 1),
+             (64, 8, 128, 1)]
+# shapes only the general kernel takes: d / VEC not a power of two or above
+# 32, d / heads below VEC, more key rows a lane than the warp kernel holds
+ATTN_GENERAL = [(3, 10, 96, 1), (3, 10, 256, 1), (3, 10, 128, 64),
+                (3, 17, 128, 1)]
 PROJ_CASES = [(37, 80, 80), (19, 256, 256), (9, 1521, 1521)]
 # the kernel's tiling edges: row counts below one tile and ragged (1, 37,
 # 129), a full S3D stripe, Dout != D on the resident path (80 -> 48), ragged
@@ -131,6 +147,56 @@ def test_gae_project_plain_matches_jax(needs_jax, n, d, dout):
                                    atol=3e-5, rtol=3e-5)
 
 
+@pytest.mark.parametrize("lead,n,d", [((4, 9), 10, 64), ((64,), 10, 128)])
+def test_block_attention_plain_bf16_matches_jax(needs_jax, lead, n, d):
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((*lead, n, d)).astype(np.float32)
+               for _ in range(3))
+    got = t_ba.block_attention(*(torch.from_numpy(a).to(torch.bfloat16)
+                                 for a in (q, k, v)))
+    assert got.dtype == torch.bfloat16 and got.shape == (*lead, n, d)
+    args = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    ref = ba_ref.block_attention_ref(*(a.reshape(-1, n, d) for a in args))
+    for want in (ref.reshape(*lead, n, d), ba_ops.block_attention(*args)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,d,heads", ATTN_CASES + ATTN_SWEEP + ATTN_PATH)
+def test_block_attention_sweep_and_paths_take_warp_kernel(b, n, d, heads,
+                                                          dtype):
+    plan = t_ba.launch_plan(b, n, d, d, heads, dtype)
+    assert plan.path == "warp"
+    assert (dtype.itemsize, plan.kpl) in t_ba.WARP_TILES
+    assert plan.qpw <= t_ba.WARP_TILES[dtype.itemsize, plan.kpl]
+    assert plan.qpw * plan.wph >= n > plan.qpw * (plan.wph - 1)
+    if b >= t_ba.WARPS_PER_SM * 132:        # K and V read by one warp
+        assert plan.wph == 1
+    if (b, n, d) == (64, 10, 128):          # the stripe covers the 132 SMs
+        assert b * plan.wph >= 2 * 132
+
+
+@pytest.mark.parametrize("b,n,dk,dv,heads,dtype,aligned", [
+    (3, 10, 96, 96, 1, torch.float32, True),        # d / VEC = 24
+    (3, 10, 256, 256, 1, torch.float32, True),      # d / VEC = 64 > 32
+    (3, 10, 12, 12, 1, torch.float32, True),        # d / VEC = 3
+    (3, 10, 128, 128, 64, torch.float32, True),     # d / heads = 2 < VEC
+    (3, 17, 128, 128, 1, torch.float32, True),      # 17 key rows a lane
+    (3, 10, 128, 64, 1, torch.float32, True),       # dk != dv
+    (3, 10, 128, 128, 1, torch.float32, False),     # misaligned
+    (3, 10, 96, 96, 1, torch.bfloat16, True),       # d / VEC = 12
+    (3, 10, 128, 128, 32, torch.bfloat16, True),    # d / heads = 4 < VEC
+    (3, 10, 256, 256, 1, torch.bfloat16, True),     # 10 key rows a lane
+    (3, 9, 64, 64, 1, torch.bfloat16, False),       # misaligned
+])
+def test_block_attention_general_kernel_takes_only_listed_shapes(
+        b, n, dk, dv, heads, dtype, aligned):
+    assert t_ba.launch_plan(b, n, dk, dv, heads, dtype,
+                            aligned).path == "general"
+
+
 def test_cpu_wrappers_do_not_count_launches():
     before = (t_qz.launches.value, t_ba.launches.value, t_gp.launches.value)
     x = torch.ones(4, 8)
@@ -184,11 +250,47 @@ def test_quantize_kernel_matches_plain(cuda_device, shape, bin_size):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,d,heads", ATTN_CASES)
+@pytest.mark.parametrize("b,n,d,heads",
+                         ATTN_CASES + ATTN_SWEEP + ATTN_PATH + ATTN_GENERAL)
 def test_block_attention_kernel_matches_plain(cuda_device, b, n, d, heads):
     q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _attn_inputs(b, n, d))
     torch.testing.assert_close(t_ba.block_attention(q, k, v, heads),
                                t_ba.block_attention_plain(q, k, v, heads),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,n,d,path", [((4, 9), 10, 64, "warp"),
+                                           ((64,), 10, 128, "warp"),
+                                           ((4, 9), 10, 96, "general")])
+def test_block_attention_kernel_bf16(cuda_device, lead, n, d, path):
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((*lead, n, d)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16) for _ in range(3))
+    assert t_ba.launch_plan(math.prod(lead), n, d, d, 1,
+                            torch.bfloat16).path == path
+    got = t_ba.block_attention(q, k, v)
+    assert got.dtype == torch.bfloat16 and got.shape == (*lead, n, d)
+    torch.testing.assert_close(got.float(),
+                               t_ba.block_attention_plain(q, k, v).float(),
+                               atol=5e-2, rtol=5e-2)
+    # the kernel's fp32 arithmetic: the fp32 plain version on the same
+    # bf16-rounded inputs, rounded to bf16, is at most one bf16 ulp away
+    want = t_ba.block_attention_plain(q.float(), k.float(), v.float())
+    torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float(),
+                               atol=8e-3, rtol=8e-3)
+
+
+@pytest.mark.cuda
+def test_block_attention_kernel_misaligned_inputs(cuda_device):
+    b, n, d = 5, 10, 128
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _attn_inputs(b, n, d))
+    # the same values at an address 4 bytes past a 16-byte boundary
+    q1 = torch.empty(q.numel() + 1, device=cuda_device)[1:].view(b, n, d)
+    q1.copy_(q)
+    assert q1.is_contiguous() and q1.data_ptr() % 16
+    torch.testing.assert_close(t_ba.block_attention(q1, k, v),
+                               t_ba.block_attention_plain(q, k, v),
                                atol=1e-5, rtol=1e-5)
 
 
