@@ -17,7 +17,8 @@ Phases, each reported on its own lines:
    there is one, and the card's bound for the same work; ssd_scan's four
    CUDA kernels are also each held to their plain phase and timed by name;
    flash_attention and block_attention run in fp32 and bf16; the card's
-   launch floor (a one-element ``torch.add_``) is printed; and the gates of
+   launch floor (a one-element ``torch.add_``) is printed; quantize also
+   takes bf16 and is held bit for bit to the fp32 formula; and the gates of
    the redesigned kernels hold: block_attention at the S3D stripe
    (64, 10, 128) at most 0.0042 ms (or 1.5x the launch floor, where that is
    above it), at (1600, 10, 128) at most 2.0x its bytes bound, and at both
@@ -25,13 +26,32 @@ Phases, each reported on its own lines:
    flash_attention bf16 at most 2.0x ``scaled_dot_product_attention`` in
    turns, fp32 at most 2.0 ms and faster than it, ssd_scan at most
    0.72 ms, gae_project at most 1.10x ``torch.matmul`` in turns;
-3. main path: the S3D configuration at full width on a synthetic
-   58x50x160x160 field — seeded untrained weights, ``fit_basis``,
-   ``compress`` at tau 0.5, write and read the ``.rba`` archive, ``decompress``
-   — with every kernel's launches counted, the tau guarantee and the disk
-   round trip checked, and the first stripe held against the same path on
-   the CPU;
-4. LM path, for qwen2-1.5b and mamba2-370m at full width with seeded
+3. gradients: through each kernel's ``torch.autograd.Function`` against
+   autograd through its plain version on the card — ``wq``, ``wk``, ``wv``
+   and ``wo`` of one ``self_attention`` call at the S3D stripe
+   (block_attention), and q, k, v of flash_attention and the five inputs of
+   ssd_scan at small shapes — at 1e-5 of the largest gradient; and the
+   device time of block_attention's forward (the kernel) and backward (its
+   plain formula) at the stripe;
+4. fit: ``HierarchicalCompressor.fit`` of the S3D configuration at full
+   width on the main path's field (30 HBAE epochs of 25 steps, then 30 BAE
+   epochs of 62 steps, Adam), with the wall and steps/s of each stage, the
+   first and last logged loss, block_attention launched exactly twice per
+   HBAE step plus twice for the residual pass, the last logged HBAE loss at
+   most 1 / ``FIT_LOSS_DROP_MIN`` of the first, device busy time and idle
+   share over a profiled window of ``PROFILE_STEPS`` HBAE steps, and one
+   HBAE step on the card held to the same step on the CPU (the loss at
+   1e-5, every gradient at 1e-5 of its leaf's largest, the params within
+   Adam's first-step bound, as ``tests/test_torch_training.py`` holds them);
+5. main path: the fitted model on the same synthetic 58x50x160x160 field —
+   ``fit_basis``, ``compress`` at tau 0.5, write and read the ``.rba``
+   archive, ``decompress`` — with every kernel's launches counted, the tau
+   guarantee and the disk round trip checked, and the first stripe held
+   against the same path on the CPU;
+6. the launcher: ``python -m repro_torch.launch.compress --dataset e3sm
+   --quick --epochs-scale 0.25 --out <tmp> --verify`` as a subprocess, which
+   must exit 0 and print "verify OK";
+7. LM path, for qwen2-1.5b and mamba2-370m at full width with seeded
    weights: ``forward`` over 1 x 4096 random tokens (the prefill, with its
    kernel launched once per layer) in fp32 and then with
    ``compute_dtype="bfloat16"``; the bf16 prefill's last 64 logits through
@@ -40,7 +60,7 @@ Phases, each reported on its own lines:
    serving engine's decode-step prefill on a 64-token prompt, the device
    time of one ``decode_step`` against its wall, and ``ServeEngine.serve``
    on 8 requests with raw KV and with ``kv_tau`` 0.05;
-5. one JSON line with every kernel's numbers (one row per kernel and
+8. one JSON line with every kernel's numbers (one row per kernel and
    dtype), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -88,6 +108,15 @@ FA_F32_MS_MAX = 2.0
 BA_STRIPE_MS_MAX = 0.0042
 BA_FIT_OVER_BOUND_MAX = 2.0
 BA_OVER_SDPA_MAX = 1.0
+
+# Training.  The fit runs the S3D configuration's own 30 HBAE and 30 BAE
+# epochs.  The last logged HBAE loss (step 700) must be at most
+# 1 / FIT_LOSS_DROP_MIN of the first (step 0): the first run on an H100 80GB
+# HBM3 at 700 W fell 22.85x (1.828e-2 to 7.998e-4); the gate keeps a
+# margin of 2.3x below that.
+FIT_LOSS_DROP_MIN = 10.0
+PROFILE_STEPS = 50
+LR, EPS = 1e-3, 1e-8        # the configuration's Adam
 
 TAU = 0.5
 KV_TAU = 0.05       # the LM serve run's per-token bound on the KV cache
@@ -226,6 +255,30 @@ def check_kernels(torch, dev) -> dict:
                          "src/repro/kernels/quantize/kernel.py:25", err,
                          t[0], t_plain[0], None, 16 * n, 5 * n)
         report("quantize", shape, err, t, t_plain, None, b_ms, b_by)
+
+    # quantize on bf16 input: read as fp32, deq written in bf16, err2 in fp32,
+    # bit for bit the fp32 formula (and the plain version), at the HBAE
+    # latents' shape; no compressor path hands it bf16 (launches 0)
+    x = (3 * torch.randn((64, 128), generator=gen, device=dev)).to(torch.bfloat16)
+    got = qz.quantize_fused(x, 0.005)
+    x32, b32 = x.float(), torch.tensor(0.005, device=dev)
+    q32 = torch.round(x32 / b32)
+    deq32 = q32 * b32
+    want = (q32.to(torch.int32), deq32.to(torch.bfloat16),
+            torch.square(x32 - deq32))
+    for g, w, p in zip(got, want, qz.quantize_fused_plain(x, 0.005)):
+        if not (g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, p)):
+            raise CheckFailed("quantize bf16 (64, 128): kernel output is not "
+                              "bit-identical to the fp32 formula and the plain "
+                              "version")
+    t = time_ms(torch, lambda: qz.quantize_fused(x, 0.005))
+    t_plain = time_ms(torch, lambda: qz.quantize_fused_plain(x, 0.005))
+    n = x.numel()
+    b_ms, b_by = row("quantize", "src/repro_torch/csrc/quantize.cu",
+                     "src/repro/kernels/quantize/kernel.py:25", 0.0, t[0],
+                     t_plain[0], None, 12 * n, 5 * n, dtype="bfloat16")
+    report("quantize", (64, 128, "bfloat16"), 0.0, t, t_plain, None, b_ms,
+           b_by)
 
     # the card's launch floor: the device time of the least kernel there is,
     # printed beside block_attention's small-shape time, which is below it
@@ -501,36 +554,296 @@ def _kernel_against_library(torch, name, shape, kernel, library,
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the compressor's main path
+# phase 3: gradients through the kernels' autograd Functions
 # ---------------------------------------------------------------------------
 
-def run_main_path(torch, dev, counters, kernels) -> dict:
-    """The compressor path; ``kernels`` are the counters' names it must
-    launch."""
+def _grads_close(what, got, want, frac=1e-5) -> None:
+    """Fails unless every gradient in ``got`` is nonzero somewhere and within
+    ``frac`` of the largest in ``want`` of its partner."""
+    scale = max(w.abs().max().item() for w in want)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    if not all(g.abs().max().item() > 0 for g in got):
+        raise CheckFailed(f"{what}: a gradient through the kernel is all zero")
+    if err > frac * scale:
+        raise CheckFailed(f"{what}: gradients through the kernel differ from "
+                          f"the plain path's by {err:.3e}, more than {frac} x "
+                          f"the largest ({scale:.3e})")
+    print(f"gradients {what}: max abs diff {err:.3e} (gate {frac} x "
+          f"{scale:.3e})", flush=True)
+
+
+def check_gradients(torch, dev) -> None:
+    """Each kernel's autograd Function against autograd through its plain
+    version on the card; block_attention through ``self_attention``'s
+    projections at the S3D stripe, and its forward and backward timed."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import attention
+    from repro_torch.kernels.block_attention import ops as ba
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as sd
+    from repro_torch.train import optim
+
+    cpu = torch.Generator().manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    # block_attention: one self_attention call at the S3D stripe, d 128
+    params = optim.tree_map(lambda t: t.to(dev),
+                            attention.attention_init(cpu, 128, heads=1))
+    x = torch.randn(64, 10, 128, generator=gen, device=dev)
+    w = torch.randn(64, 10, 128, generator=gen, device=dev)
+    names = ("wq", "wk", "wv", "wo")
+    grads = {}
+    for route in ("kernel", "plain"):
+        leaves = [params[n]["w"].detach().clone().requires_grad_()
+                  for n in names]
+        p = dict(params, **{n: {"w": leaf} for n, leaf in zip(names, leaves)})
+        before = ba.launches.value
+        if route == "plain":
+            attention.block_attention = ba.block_attention_plain
+        try:
+            loss = torch.sum(attention.self_attention(p, x) * w)
+        finally:
+            attention.block_attention = ba.block_attention
+        if ba.launches.value - before != (route == "kernel"):
+            raise CheckFailed(f"self_attention ({route}) launched "
+                              f"block_attention {ba.launches.value - before} "
+                              f"times")
+        grads[route] = torch.autograd.grad(loss, leaves)
+    _grads_close("block_attention (self_attention wq, wk, wv, wo at "
+                 "(64, 10, 128))", grads["kernel"], grads["plain"])
+
+    q, k, v, d_out = (torch.randn(64, 10, 128, generator=gen, device=dev)
+                      for _ in range(4))
+    fwd = time_ms(torch, lambda: ba.block_attention(q, k, v, 1))
+    bwd = time_ms(torch, lambda: ba.block_attention_backward_plain(
+        q, k, v, 1, d_out))
+    print(f"gradients block_attention (64, 10, 128) autograd Function: "
+          f"forward (the kernel) device ms {fwd[0]:.5f} (per call "
+          f"{fwd[1]:.5f}), backward (block_attention_backward_plain) "
+          f"{bwd[0]:.5f} (per call {bwd[1]:.5f})", flush=True)
+
+    def through(fn, ins, ws):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        return torch.autograd.grad(
+            sum(torch.sum(o * w) for o, w in zip(outs, ws)), leaves)
+
+    # flash_attention: qwen2-1.5b's heads over 512 tokens, causal
+    q = torch.randn(1, 512, 12, 128, generator=gen, device=dev)
+    k, v = (torch.randn(1, 512, 2, 128, generator=gen, device=dev)
+            for _ in range(2))
+    w = torch.randn(q.shape, generator=gen, device=dev)
+    _grads_close("flash_attention (1, 512, 12, 2, 128) q, k, v",
+                 through(fa.flash_attention, (q, k, v), (w,)),
+                 through(fa.flash_attention_plain, (q, k, v), (w,)))
+
+    # ssd_scan: mamba2-370m's heads over 512 tokens, chunk 256
+    x = torch.randn(1, 512, 32, 64, generator=gen, device=dev)
+    dt = F.softplus(torch.randn(1, 512, 32, generator=gen, device=dev))
+    a_log = torch.rand(32, generator=gen, device=dev)
+    b, c = (torch.randn(1, 512, 1, 128, generator=gen, device=dev)
+            for _ in range(2))
+    ws = (torch.randn(x.shape, generator=gen, device=dev),
+          torch.randn(1, 32, 64, 128, generator=gen, device=dev))
+    ins = (x, dt, a_log, b, c)
+    _grads_close("ssd_scan (1, 512, 32, 64, N 128, chunk 256) x, dt, a_log, "
+                 "b, c",
+                 through(lambda *a: sd.ssd(*a, chunk=256), ins, ws),
+                 through(lambda *a: sd.ssd_plain(*a, chunk=256), ins, ws))
+
+
+# ---------------------------------------------------------------------------
+# phase 4: fit
+# ---------------------------------------------------------------------------
+
+def _adam_first_step_bound(np, p, gj, gt):
+    """How far two Adam first steps from param ``p`` with gradients ``gj``
+    and ``gt`` may land apart: the update lr * g / (|g| + eps) moves at most
+    lr * eps / (|g| + eps)^2 per unit of g between them, plus the roundings
+    (``tests/test_torch_training.py``)."""
+    g_min = np.where(np.sign(gj) == np.sign(gt),
+                     np.minimum(np.abs(gj), np.abs(gt)), 0.0)
+    slope = LR * EPS / (g_min + EPS) ** 2
+    return (slope * np.abs(gt.astype(np.float64) - gj)
+            + 8 * np.spacing(np.float32(LR)) + 2 * np.spacing(np.abs(p) + LR))
+
+
+def run_fit(torch, dev, counters, cfg, hb):
+    """``fit`` on the card; returns the fitted compressor."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import exec as exec_mod
+    from repro_torch.core import training
+    from repro_torch.core.pipeline import HierarchicalCompressor
+    from repro_torch.train import optim
+
+    n, k, d = hb.shape
+    hb_batch, bae_batch = min(cfg.batch, n), min(max(cfg.batch * 4, 256), n * k)
+    hbae_steps = cfg.epochs_hbae * (n // hb_batch)
+    bae_steps = cfg.epochs_bae * (n * k // bae_batch)
+    print(f"fit: S3D, {n} hyper-blocks, HBAE {cfg.epochs_hbae} epochs x "
+          f"{n // hb_batch} steps of {hb_batch} = {hbae_steps} steps, BAE "
+          f"{cfg.epochs_bae} epochs x {n * k // bae_batch} steps of "
+          f"{bae_batch} rows = {bae_steps} steps, Adam lr {cfg.lr}",
+          flush=True)
+    for c in counters.values():
+        c.reset()
+    exec_mod.reset_stage_stats()
+    logs = []
+    comp = HierarchicalCompressor(cfg)           # the card, by default
+    t0 = time.perf_counter()
+    comp.fit(hb, seed=0, log=lambda s, l: logs.append((s, l)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.value for name, c in counters.items()}
+    stats = exec_mod.stage_stats()
+    hb_s, bae_s = stats["hbae_train"].seconds, stats["bae_train"].seconds
+    split = [i for i, (step, _) in enumerate(logs) if step == 0][1]
+    hb_logs, bae_logs = logs[:split], logs[split:]
+    print(f"fit: wall {wall:.3f} s; HBAE {hb_s:.3f} s ({hbae_steps / hb_s:.1f} "
+          f"steps/s), BAE {bae_s:.3f} s ({bae_steps / bae_s:.1f} steps/s), the "
+          f"residual pass and moves between them {wall - hb_s - bae_s:.3f} s",
+          flush=True)
+    print(f"fit: HBAE mse by step {', '.join(f'{s} {l:.6e}' for s, l in hb_logs)}",
+          flush=True)
+    print(f"fit: BAE mse by step {', '.join(f'{s} {l:.6e}' for s, l in bae_logs)}",
+          flush=True)
+    print(f"fit launches: {json.dumps(launches)}", flush=True)
+    want = 2 * hbae_steps + 2
+    if launches["block_attention"] != want:
+        raise CheckFailed(f"fit launched block_attention "
+                          f"{launches['block_attention']} times, not {want} "
+                          f"(2 per HBAE step and 2 for the residual pass)")
+    drop = hb_logs[0][1] / hb_logs[-1][1]
+    print(f"fit: HBAE loss fell {drop:.2f}x from step {hb_logs[0][0]} to "
+          f"step {hb_logs[-1][0]} (gate {FIT_LOSS_DROP_MIN}x)", flush=True)
+    if not drop >= FIT_LOSS_DROP_MIN:
+        raise CheckFailed(f"the HBAE loss fell {drop:.3f}x, less than "
+                          f"{FIT_LOSS_DROP_MIN}x")
+
+    # where a step's time goes: PROFILE_STEPS HBAE steps from the fitted
+    # params, after 5 warm-up steps, under the profiler
+    data = exec_mod.upload(hb, dev)
+    params = optim.tree_map(lambda t: t.clone(), comp.hbae_params)
+    opt = optim.adam(lr=cfg.lr)
+    state = opt.init(params)
+    order = list(training._minibatches(np.random.default_rng(1), n, cfg.batch,
+                                       3))[:PROFILE_STEPS + 5]
+    idx = torch.from_numpy(np.stack(order)).to(dev)
+    for i in range(5):
+        params, state, _ = training._hbae_step(params, state, data[idx[i]], opt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(5, 5 + PROFILE_STEPS):
+            params, state, _ = training._hbae_step(params, state,
+                                                   data[idx[i]], opt)
+        torch.cuda.synchronize()
+        step_wall = time.perf_counter() - t0
+    busy = device_ms(torch, prof) / 1e3
+    ba_s = sum(device_ms_by_name(torch, prof, "block_attention").values()) / 1e3
+    print(f"fit profile: {PROFILE_STEPS} HBAE steps in {step_wall:.4f} s "
+          f"({PROFILE_STEPS / step_wall:.1f} steps/s, "
+          f"{step_wall / PROFILE_STEPS * 1e3:.3f} ms a step); device busy "
+          f"{busy * 1e3:.3f} ms ({busy / PROFILE_STEPS * 1e3:.4f} ms a step), "
+          f"idle share {1 - busy / step_wall:.4f}; block_attention kernel "
+          f"{ba_s * 1e3:.3f} ms ({ba_s / busy if busy else 0.0:.4f} of busy)",
+          flush=True)
+
+    # one HBAE step on the card against the same step on the CPU
+    batch = hb[:cfg.batch]
+    results = {}
+    for where in ("cpu", "cuda"):
+        p = optim.tree_map(lambda t: t.detach().to(where).clone(),
+                           comp.hbae_params)
+        x = exec_mod.upload(batch, torch.device(where))
+        _, g = training._value_and_grad(training.hbae_loss, p, x)
+        o = optim.adam(lr=cfg.lr)
+        p, _, loss = training._hbae_step(p, o.init(p), x, o)
+        results[where] = (float(loss), [t.cpu().numpy() for t in
+                                        optim.tree_leaves(g)],
+                          [t.detach().cpu().numpy() for t in
+                           optim.tree_leaves(p)])
+    before = [t.cpu().numpy() for t in optim.tree_leaves(comp.hbae_params)]
+    (l_c, g_c, p_c), (l_g, g_g, p_g) = results["cpu"], results["cuda"]
+    g_err = max(float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
+                for a, b in zip(g_c, g_g))
+    p_over = max(float((np.abs(b - a) / _adam_first_step_bound(np, p0, ga, gb)
+                        ).max())
+                 for p0, ga, gb, a, b in zip(before, g_c, g_g, p_c, p_g))
+    print(f"fit: one HBAE step card vs CPU: loss {l_g:.8e} vs {l_c:.8e} "
+          f"(rel {abs(l_g / l_c - 1):.3e}, gate 1e-5), gradients max diff "
+          f"{g_err:.3e} of their leaf's largest (gate 1e-5), params at "
+          f"{p_over:.4f} of Adam's first-step bound (gate 1)", flush=True)
+    if abs(l_g / l_c - 1) > 1e-5 or g_err > 1e-5 or p_over > 1:
+        raise CheckFailed("one HBAE step on the card differs from the CPU's")
+    return comp
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the launcher
+# ---------------------------------------------------------------------------
+
+def run_launcher() -> None:
+    """``python -m repro_torch.launch.compress`` as a user runs it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "repro_torch.launch.compress",
+               "--dataset", "e3sm", "--quick", "--epochs-scale", "0.25",
+               "--out", os.path.join(tmp, "e3sm.rba"), "--verify"]
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             timeout=600, cwd=tmp)
+        wall = time.perf_counter() - t0
+    print(f"launcher: {' '.join(cmd[1:4])} ... exit {out.returncode} in "
+          f"{wall:.1f} s; its output:", flush=True)
+    print("\n".join("  | " + line for line in
+                    (out.stdout + out.stderr).splitlines()), flush=True)
+    if out.returncode != 0 or "verify OK" not in out.stdout:
+        raise CheckFailed(f"the launcher exited {out.returncode} without "
+                          f"'verify OK'")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the compressor's main path
+# ---------------------------------------------------------------------------
+
+def make_field():
+    """The S3D configuration at full width and its synthetic field, cut to
+    ``FIELD``; the fit and the main path share them."""
+    from repro_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    cfg, hb = synthetic.make_dataset("s3d", quick=False, seed=0, field=FIELD)
+    print(f"S3D config block {cfg.block_elems}, k {cfg.k}, emb {cfg.emb}, "
+          f"hidden {cfg.hidden}, hb_latent {cfg.hb_latent}, bae_hidden "
+          f"{cfg.bae_hidden}, bae_latent {cfg.bae_latent}, GAE blocks of "
+          f"{cfg.gae_block_elems}, epochs {cfg.epochs_hbae}/{cfg.epochs_bae}",
+          flush=True)
+    print(f"S3D field cut from {FULL_FIELD} to "
+          f"{FIELD['n_species']}x{FIELD['t']}x{FIELD['h']}x{FIELD['w']} "
+          f"({hb.size / 1e6:.1f} M values, {hb.shape[0]} hyper-blocks) "
+          f"because the host GAE/entropy coders and the generator would "
+          f"exceed the run's time limit at full size; generated in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, hb
+
+
+def run_main_path(torch, dev, counters, kernels, comp, hb) -> dict:
+    """The compressor path on the fitted ``comp``; ``kernels`` are the
+    counters' names it must launch."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import exec as exec_mod
     from repro_torch.core.options import CompressOptions
     from repro_torch.core.pipeline import HierarchicalCompressor
-    from repro_torch.data import synthetic
     from repro_torch.runtime import archive_io
 
-    t0 = time.perf_counter()
-    cfg, hb = synthetic.make_dataset("s3d", quick=False, seed=0, field=FIELD)
-    print(f"main path: S3D config block {cfg.block_elems}, k {cfg.k}, emb "
-          f"{cfg.emb}, hidden {cfg.hidden}, hb_latent {cfg.hb_latent}, "
-          f"bae_hidden {cfg.bae_hidden}, bae_latent {cfg.bae_latent}, GAE "
-          f"blocks of {cfg.gae_block_elems}", flush=True)
-    print(f"main path: field cut from {FULL_FIELD} to "
-          f"{FIELD['n_species']}x{FIELD['t']}x{FIELD['h']}x{FIELD['w']} "
-          f"({hb.size / 1e6:.1f} M values, {hb.shape[0]} hyper-blocks) "
-          f"because the host GAE/entropy coders and the generator would "
-          f"exceed the run's time limit at full size; generated in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-
-    comp = HierarchicalCompressor(cfg)           # the card, by default
-    comp.init_params(seed=0)
+    cfg = comp.cfg
     exec_mod.reset_stage_stats()
     for c in counters.values():
         c.reset()
@@ -560,7 +873,7 @@ def run_main_path(torch, dev, counters, kernels) -> dict:
           "threads):\n" + stats, flush=True)
     print(f"main path: {len(archive.chunks)} chunks, {written} bytes on "
           f"disk, compression ratio {archive.compression_ratio():.4f} "
-          f"(untrained AE, not a result)", flush=True)
+          f"(trained ({cfg.epochs_hbae}/{cfg.epochs_bae} epochs))", flush=True)
     print(f"main path launches: {json.dumps(launches)}", flush=True)
 
     for name in kernels:
@@ -576,6 +889,15 @@ def run_main_path(torch, dev, counters, kernels) -> dict:
         raise CheckFailed(f"GAE block error {errs.max()} exceeds tau {TAU}")
     if not np.array_equal(recon, recon_mem):
         raise CheckFailed("decode from disk differs from the in-memory decode")
+
+    # the ratio of the same path with PR 15's seeded untrained weights
+    raw = HierarchicalCompressor(cfg).init_params(seed=0)
+    raw.fit_basis(hb)
+    untrained = raw.compress(hb, options=CompressOptions(tau=TAU))
+    print(f"main path: the same field with seeded untrained weights "
+          f"(init_params(seed=0)): compression ratio "
+          f"{untrained.compression_ratio():.4f}", flush=True)
+    del raw, untrained
 
     # the first stripe against the same path on the CPU (plain versions)
     cpu = HierarchicalCompressor(cfg, device="cpu")
@@ -905,13 +1227,19 @@ def main() -> int:
 
     try:
         rows = check_kernels(torch, dev)
+        check_gradients(torch, dev)
         counters = {"quantize": qz.launches, "block_attention": ba.launches,
                     "gae_project": gp.launches, "flash_attention": fa.launches,
                     "ssd_scan": sd.launches}
+        cfg, hb = make_field()
+        comp = run_fit(torch, dev, counters, cfg, hb)
         launches = run_main_path(torch, dev, counters,
-                                 ("quantize", "block_attention", "gae_project"))
+                                 ("quantize", "block_attention", "gae_project"),
+                                 comp, hb)
         launches = {(name, "float32"): launches[name] for name in
                     ("quantize", "block_attention", "gae_project")}
+        del comp, hb
+        run_launcher()
         launches.update(run_lm_path(torch, dev, counters))
     except (CheckFailed, AssertionError) as e:
         print(f"FAIL: {e}", file=sys.stderr)

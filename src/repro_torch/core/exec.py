@@ -54,6 +54,13 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 # ---------------------------------------------------------------------------
 # stage timing / throughput counters
 # ---------------------------------------------------------------------------

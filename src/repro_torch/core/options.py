@@ -4,8 +4,9 @@ The fields and their validation follow the JAX package's ``core/options.py``,
 so one options object means the same run in both packages.  The PyTorch
 compressor runs the batch path only, configured by ``tau`` and
 ``chunk_hyperblocks``; ``HierarchicalCompressor.compress`` raises
-``ConfigError`` for ``stream``, ``mesh``, ``retries``, ``stage_deadline_s``
-and ``chaos_seed``, which belong to paths not ported yet.
+``ConfigError`` for ``stream``, ``queue_depth``, ``mesh``, ``retries``,
+``stage_deadline_s`` and ``chaos_seed`` away from their defaults, which
+belong to paths not ported yet.
 
 Validation happens at CONSTRUCTION time and raises a typed
 :class:`~repro_torch.core.errors.ConfigError`, so a zero-width chunk fails

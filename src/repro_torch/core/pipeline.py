@@ -5,10 +5,11 @@
   GAE PCA post-processing (guaranteed per-block l2 bound)  ->
   quantization + Huffman + index-bitmask/zlib bitstream.
 
-The compressor serves: its parameters come from ``init_params`` (seeded
-random weights), ``load`` (a ``repro-compressor-v2`` manifest, as the JAX
-package's ``save`` writes it) or ``params_from_jax``; training is not ported
-yet.  Then ``fit_basis`` -> ``compress`` -> archive -> ``decompress``.
+Its parameters come from ``fit`` (HBAE, then each BAE stage on the HBAE
+residuals, with Adam; ``core/training.py``), ``init_params`` (seeded random
+weights), ``load`` (a ``repro-compressor-v2`` manifest, as the JAX package's
+``save`` writes it) or ``params_from_jax``.  Then ``fit_basis`` ->
+``compress`` -> archive -> ``decompress``.
 
 The device work (AE stages, GAE selection, both through the port's CUDA
 kernels on a card) runs on ``device``; the entropy coders and the container
@@ -24,7 +25,7 @@ import hashlib
 import io
 import json
 import math
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -33,6 +34,7 @@ from repro_torch.core import bae as bae_mod
 from repro_torch.core import entropy, gae
 from repro_torch.core import exec as exec_mod
 from repro_torch.core import hbae as hbae_mod
+from repro_torch.core import training
 from repro_torch.core.errors import (ArchiveError, ChecksumMismatch, ChunkDamage,
                                      ConfigError, DamageReport,
                                      GuaranteeUnsatisfiable, MalformedStream)
@@ -40,8 +42,16 @@ from repro_torch.core.options import CompressOptions
 
 #: CompressOptions fields of the JAX package's streaming, sharding and
 #: fault-tolerance paths, which this package does not run yet.
-_UNPORTED_OPTIONS = ("stream", "mesh", "retries", "stage_deadline_s",
-                     "chaos_seed")
+_UNPORTED_OPTIONS = ("stream", "queue_depth", "mesh", "retries",
+                     "stage_deadline_s", "chaos_seed")
+
+
+def unported_options(opts: CompressOptions) -> list[str]:
+    """The fields of ``opts`` that belong to paths not ported yet and are
+    not at their defaults; ``compress`` refuses options that have any."""
+    defaults = CompressOptions()
+    return [f for f in _UNPORTED_OPTIONS
+            if getattr(opts, f) != getattr(defaults, f)]
 
 
 @dataclasses.dataclass
@@ -223,7 +233,7 @@ def params_from_jax(hbae_tree: dict, bae_trees: list, device=None
 
 
 class HierarchicalCompressor:
-    """compress / decompress on hyper-block-shaped data (N, k, D).
+    """fit / compress / decompress on hyper-block-shaped data (N, k, D).
 
     ``device`` defaults to the card; without one, pass ``device="cpu"``.
     """
@@ -253,6 +263,48 @@ class HierarchicalCompressor:
                     for _ in range(cfg.n_bae_stages)]
         self.hbae_params = _to_device(hbae, self.device)
         self.bae_params = [_to_device(p, self.device) for p in baes]
+        return self
+
+    # -- training ------------------------------------------------------------
+    def fit(self, hyperblocks: np.ndarray, seed: int = 0,
+            log: Optional[Callable[[int, float], None]] = None
+            ) -> "HierarchicalCompressor":
+        """Train the HBAE, then each BAE stage on the residuals of the
+        unquantized HBAE forward, on the device.  Initial weights come from
+        one ``torch.Generator(seed)``; minibatches follow the JAX package's
+        ``seed`` (HBAE) and ``seed + s`` (BAE stage ``s``).  The stage
+        counters ``hbae_train`` and ``bae_train`` time the two trainings."""
+        cfg = self.cfg
+        n, k, d = hyperblocks.shape
+        if (k, d) != (cfg.k, cfg.block_elems):
+            raise ValueError(f"hyper-blocks of shape {hyperblocks.shape} do "
+                             f"not match k={cfg.k}, block_elems="
+                             f"{cfg.block_elems}")
+        gen = torch.Generator().manual_seed(seed)
+        x = exec_mod.upload(hyperblocks, self.device)
+        with exec_mod.stage("hbae_train", x.numel() * cfg.epochs_hbae):
+            self.hbae_params = training.train_hbae(
+                gen, x, emb=cfg.emb, hidden=cfg.hidden, latent=cfg.hb_latent,
+                heads=cfg.heads, use_attention=cfg.use_attention,
+                epochs=cfg.epochs_hbae, batch=cfg.batch, lr=cfg.lr, seed=seed,
+                log=log, device=self.device)
+            exec_mod.synchronize(self.device)
+        self.bae_params = []
+        if cfg.use_bae:
+            with torch.no_grad():
+                resid = (x - hbae_mod.hbae_apply(self.hbae_params, x)[0]
+                         ).reshape(n * k, d)
+            for s in range(cfg.n_bae_stages):
+                with exec_mod.stage("bae_train", resid.numel() * cfg.epochs_bae):
+                    p = training.train_bae(
+                        gen, resid, hidden=cfg.bae_hidden,
+                        latent=cfg.bae_latent, epochs=cfg.epochs_bae,
+                        batch=max(cfg.batch * 4, 256), lr=cfg.lr,
+                        seed=seed + s, log=log, device=self.device)
+                    exec_mod.synchronize(self.device)
+                self.bae_params.append(p)
+                with torch.no_grad():
+                    resid = resid - bae_mod.bae_apply(p, resid)[0]
         return self
 
     # -- forward helpers ----------------------------------------------------
@@ -416,10 +468,8 @@ class HierarchicalCompressor:
         Configuration comes in as one ``CompressOptions``; options of paths
         not ported yet raise ``ConfigError``.
         """
-        defaults = CompressOptions()
-        opts = options if options is not None else defaults
-        unported = [f for f in _UNPORTED_OPTIONS
-                    if getattr(opts, f) != getattr(defaults, f)]
+        opts = options if options is not None else CompressOptions()
+        unported = unported_options(opts)
         if unported:
             raise ConfigError(f"options {unported} are not ported to the "
                               f"PyTorch compressor yet")

@@ -9,6 +9,11 @@ kernel for CUDA tensors: fp32 or bf16 q, k, v, computed in fp32 and written
 in the input's dtype, as the TPU kernel does.  ``launch_plan`` is the shape
 rule that picks the kernel (the warp path, or the general path for what the
 warp path cannot take); ``launches`` counts kernel launches only.
+
+On CUDA the launch sits inside a ``torch.autograd.Function``, so a loss
+through the kernel has gradients for q, k and v.  Its backward is
+``block_attention_backward_plain``, the softmax's gradient in torch ops (the
+JAX package has no backward kernel and trains through its jnp path).
 """
 from __future__ import annotations
 
@@ -87,6 +92,38 @@ def block_attention_plain(q: Tensor, k: Tensor, v: Tensor,
     return ctx.reshape(*lead, n, dv)
 
 
+def block_attention_backward_plain(q: Tensor, k: Tensor, v: Tensor,
+                                   heads: int, d_out: Tensor
+                                   ) -> tuple[Tensor, Tensor, Tensor]:
+    """Gradients ``(dq, dk, dv)`` of ``block_attention(q, k, v, heads)`` for
+    the output's gradient ``d_out``, per head, in fp32 (the softmax in fp32,
+    as the plain forward has it; the kernel computes in fp32), returned in
+    the inputs' dtypes:
+
+        P = softmax(Q K^T / sqrt(d_h)),  dV = P^T dO,  dP = dO V^T,
+        dS = P * (dP - rowsum(dP * P)),
+        dQ = dS K / sqrt(d_h),  dK = dS^T Q / sqrt(d_h).
+    """
+    *lead, n, dk = q.shape
+    dv = v.shape[-1]
+    scale = math.sqrt(dk // heads)
+
+    def split(t: Tensor) -> Tensor:
+        return t.reshape(*lead, n, heads, t.shape[-1] // heads).to(torch.float32)
+
+    hq, hk, hv, hdo = (split(t) for t in (q, k, v, d_out))
+    p = torch.softmax(torch.einsum("...qhd,...khd->...hqk", hq, hk) / scale,
+                      dim=-1)
+    d_v = torch.einsum("...hqk,...qhd->...khd", p, hdo)
+    d_p = torch.einsum("...qhd,...khd->...hqk", hdo, hv)
+    d_s = p * (d_p - torch.sum(d_p * p, dim=-1, keepdim=True))
+    d_q = torch.einsum("...hqk,...khd->...qhd", d_s, hk) / scale
+    d_k = torch.einsum("...hqk,...qhd->...khd", d_s, hq) / scale
+    return (d_q.reshape(*lead, n, dk).to(q.dtype),
+            d_k.reshape(*lead, n, dk).to(k.dtype),
+            d_v.reshape(*lead, n, dv).to(v.dtype))
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     lib.block_attention_warp.argtypes = [ctypes.c_int] + [
         ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -116,6 +153,30 @@ def block_attention(q: Tensor, k: Tensor, v: Tensor, heads: int = 1) -> Tensor:
     if heads < 1 or dk % heads or dv % heads:
         raise ValueError(f"block_attention: heads={heads} must divide "
                          f"dk={dk} and dv={dv}")
+    return _BlockAttention.apply(q, k, v, heads)
+
+
+class _BlockAttention(torch.autograd.Function):
+    """The kernel's launch, with ``block_attention_backward_plain`` as its
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q: Tensor, k: Tensor, v: Tensor, heads: int) -> Tensor:
+        ctx.heads = heads
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v, heads)
+
+    @staticmethod
+    def backward(ctx, d_out: Tensor):
+        q, k, v = ctx.saved_tensors
+        return (*block_attention_backward_plain(q, k, v, ctx.heads, d_out),
+                None)
+
+
+def _launch(q: Tensor, k: Tensor, v: Tensor, heads: int) -> Tensor:
+    """One kernel launch on checked CUDA q, k, v."""
+    *lead, n, dk = q.shape
+    dv = v.shape[-1]
     batch = math.prod(lead)
     aligned = not any(x.data_ptr() % 16 for x in (q, k, v))
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count

@@ -16,6 +16,10 @@ One divergence, as in the JAX package: a query row that no key reaches
 (causal with S > T) gets zeros from the kernel, as from the TPU kernel, and a
 uniform average over all keys from the plain version, as from ``ref.py``.
 With T >= S no row is unreached.
+
+On CUDA the launch sits inside a ``torch.autograd.Function`` whose backward
+is ``flash_attention_backward_plain``: the plain version recomputed and
+differentiated (the JAX package has no backward kernel).
 """
 from __future__ import annotations
 
@@ -72,6 +76,24 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
     return grouped_attention(q, k, v, mask[None, None, None])
 
 
+def flash_attention_backward_plain(q: Tensor, k: Tensor, v: Tensor,
+                                   d_out: Tensor, *, causal: bool = True,
+                                   window: int = 0
+                                   ) -> tuple[Tensor, Tensor, Tensor]:
+    """Gradients ``(dq, dk, dv)`` for the output's gradient ``d_out``: the
+    plain version recomputed and differentiated.  The rows no key reaches
+    (causal with S > T) are zeros in the kernel's forward, so their output
+    gradient is dropped first."""
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    unreached = q.shape[1] - k.shape[1]
+    if causal and unreached > 0:
+        d_out = d_out.clone()
+        d_out[:, :unreached] = 0
+    with torch.enable_grad():
+        out = flash_attention_plain(*ins, causal=causal, window=window)
+    return torch.autograd.grad(out, ins, d_out)
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 9 + [ctypes.c_void_p]
@@ -105,6 +127,31 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("flash_attention: kernel takes q, k, v that start "
                          "on 16-byte boundaries (TMA and cp.async)")
+    return _FlashAttention.apply(q, k, v, causal, window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's launch; the backward differentiates the plain version."""
+
+    @staticmethod
+    def forward(ctx, q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                window: int) -> Tensor:
+        ctx.causal, ctx.window = causal, window
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, d_out: Tensor):
+        return (*flash_attention_backward_plain(
+            *ctx.saved_tensors, d_out, causal=ctx.causal, window=ctx.window),
+            None, None)
+
+
+def _launch(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+            window: int) -> Tensor:
+    """One kernel launch on checked CUDA q, k, v."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

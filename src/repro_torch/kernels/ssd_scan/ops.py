@@ -87,11 +87,15 @@ def chunk_scan(x: Tensor, dt: Tensor, b: Tensor, c: Tensor, cum: Tensor,
     incoming state read through C."""
     bsz, nc, q, h = cum.shape
     xc, bc, cc = _xdt(x, dt, cum), _heads(b, cum), _heads(c, cum)
-    # intra-chunk: decay(s, t) = exp(cum_s - cum_t) for t <= s
+    # intra-chunk: decay(s, t) = exp(cum_s - cum_t) for t <= s.  The mask
+    # goes in before the exp (exp(-inf) = 0, the same forward values as
+    # ref.py's where after it): above the diagonal cum_s - cum_t is large
+    # and positive, its exp overflows to inf, and a where after the exp
+    # would make the gradient 0 * inf = nan
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (B,nc,Q,Q,H)
     mask = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(diff),
-                        torch.zeros_like(diff))
+    decay = torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                                  torch.full_like(diff, -torch.inf)))
     scores = torch.einsum("bcshn,bcthn->bcsth", cc, bc) * decay
     y = torch.einsum("bcsth,bcthp->bcshp", scores, xc)
     y_inter = torch.einsum("bcsh,bcshn,bchpn->bcshp", torch.exp(cum), cc, h_in)
@@ -121,6 +125,17 @@ def ssd_plain(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor, c: Tensor, *,
     h_in, final = state_passing(chunk_state(x, dt, b, cum), cum)
     y = chunk_scan(x, dt, b, c, cum, h_in)[:, :s_in]
     return y.to(x.dtype), final
+
+
+def ssd_backward_plain(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor,
+                       c: Tensor, d_y: Tensor, d_state: Tensor, *,
+                       chunk: int) -> tuple[Tensor, ...]:
+    """Gradients of ``(x, dt, a_log, b, c)`` for the gradients of y and of
+    the final state: ``ssd_plain`` recomputed and differentiated."""
+    ins = [t.detach().requires_grad_() for t in (x, dt, a_log, b, c)]
+    with torch.enable_grad():
+        outs = ssd_plain(*ins, chunk=chunk)
+    return torch.autograd.grad(outs, ins, (d_y, d_state))
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -205,12 +220,29 @@ def ssd(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor, c: Tensor, *,
     Returns (y (B,S,H,P), final_state (B,H,P,N) fp32)."""
     if x.device.type == "cpu":
         return ssd_plain(x, dt, a_log, b, c, chunk=chunk)
-    # As the TPU kernel does (src/repro/kernels/ssd_scan/kernel.py:40-44,
-    # :72): any input dtype is read as fp32, y comes back in x's dtype and
-    # the final state stays fp32.  The CUDA kernels take fp32, so a bf16
-    # x, b or c is cast here before the launch.
-    out = ssd_phases(*(t.float() for t in (x, dt, a_log, b, c)), chunk=chunk)
-    return out.y.to(x.dtype), out.state
+    return _Ssd.apply(x, dt, a_log, b, c, chunk)
+
+
+class _Ssd(torch.autograd.Function):
+    """The kernel's launch; the backward differentiates ``ssd_plain``."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor,
+                c: Tensor, chunk: int) -> tuple[Tensor, Tensor]:
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, a_log, b, c)
+        # As the TPU kernel does (src/repro/kernels/ssd_scan/kernel.py:40-44,
+        # :72): any input dtype is read as fp32, y comes back in x's dtype
+        # and the final state stays fp32.  The CUDA kernels take fp32, so a
+        # bf16 x, b or c is cast here before the launch.
+        out = ssd_phases(*(t.float() for t in (x, dt, a_log, b, c)),
+                         chunk=chunk)
+        return out.y.to(x.dtype), out.state
+
+    @staticmethod
+    def backward(ctx, d_y: Tensor, d_state: Tensor):
+        return (*ssd_backward_plain(*ctx.saved_tensors, d_y, d_state,
+                                    chunk=ctx.chunk), None)
 
 
 def phase_pairs(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor, c: Tensor, *,

@@ -39,7 +39,11 @@ PORT_MODULES = ("repro_torch.core.pipeline", "repro_torch.runtime.archive_io",
                 "repro_torch.kernels.flash_attention.ops",
                 "repro_torch.kernels.ssd_scan.ops",
                 "repro_torch.runtime.kvcache", "repro_torch.serve.engine",
-                "repro_torch.launch.serve")
+                "repro_torch.launch.serve", "repro_torch.train.optim",
+                "repro_torch.core.training", "repro_torch.launch.compress",
+                "repro_torch.baselines.codec", "repro_torch.baselines.szlike",
+                "repro_torch.baselines.zfplike",
+                "repro_torch.baselines.block_ae")
 
 
 def test_importing_the_port_loads_no_jax():

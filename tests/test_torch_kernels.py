@@ -124,6 +124,29 @@ def test_quantize_plain_matches_jax(needs_jax, shape, bin_size):
     assert np.all((np.abs(got[2] - err2) <= bound)[same])
 
 
+def _quantize_fp32_formula(x: torch.Tensor, bin_size):
+    """The TPU kernel's arithmetic, in numpy: x read as fp32, q = rint of the
+    fp32 quotient, deq = q * bin in fp32 (stored in x's dtype), err2 from
+    the fp32 deq."""
+    x32 = x.float().numpy()
+    b = np.float32(bin_size)
+    q = np.rint(x32 / b)
+    deq = q.astype(np.float32) * b
+    return (q.astype(np.int32), torch.from_numpy(deq).to(x.dtype),
+            np.square(x32 - deq))
+
+
+def test_quantize_plain_bf16_follows_fp32_formula():
+    x = torch.from_numpy(_quant_input((64, 128), 0.005)).to(torch.bfloat16)
+    q, deq, err2 = t_qz.quantize_fused_plain(x, 0.005)
+    assert (q.dtype, deq.dtype, err2.dtype) == (torch.int32, torch.bfloat16,
+                                                torch.float32)
+    want_q, want_deq, want_err2 = _quantize_fp32_formula(x, 0.005)
+    np.testing.assert_array_equal(q.numpy(), want_q)
+    assert torch.equal(deq, want_deq)
+    np.testing.assert_array_equal(err2.numpy(), want_err2)
+
+
 @pytest.mark.parametrize("b,n,d,heads", ATTN_CASES)
 def test_block_attention_plain_matches_jax(needs_jax, b, n, d, heads):
     q, k, v = _attn_inputs(b, n, d)
@@ -250,6 +273,19 @@ def test_quantize_kernel_matches_plain(cuda_device, shape, bin_size):
 
 
 @pytest.mark.cuda
+def test_quantize_kernel_bf16_matches_fp32_formula(cuda_device):
+    x = torch.from_numpy(_quant_input((64, 128), 0.005)).to(torch.bfloat16)
+    q, deq, err2 = t_qz.quantize_fused(x.to(cuda_device), 0.005)
+    want_q, want_deq, want_err2 = _quantize_fp32_formula(x, 0.005)
+    np.testing.assert_array_equal(q.cpu().numpy(), want_q)
+    assert deq.dtype == torch.bfloat16 and torch.equal(deq.cpu(), want_deq)
+    np.testing.assert_array_equal(err2.cpu().numpy(), want_err2)
+    for g, w in zip((q, deq, err2), t_qz.quantize_fused_plain(
+            x.to(cuda_device), 0.005)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d,heads",
                          ATTN_CASES + ATTN_SWEEP + ATTN_PATH + ATTN_GENERAL)
 def test_block_attention_kernel_matches_plain(cuda_device, b, n, d, heads):
@@ -300,3 +336,24 @@ def test_gae_project_kernel_matches_plain(cuda_device, n, d, dout):
     r, u = (torch.from_numpy(a).to(cuda_device) for a in _proj_inputs(n, d, dout))
     for g, w in zip(t_gp.gae_project(r, u), t_gp.gae_project_plain(r, u)):
         torch.testing.assert_close(g, w, atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [64, 1600])
+def test_block_attention_kernel_gradients_match_plain(cuda_device, b):
+    """The autograd Function around the kernel against autograd through the
+    plain version, at the S3D stripe and fit_basis's pass, at 1e-5 of the
+    largest gradient."""
+    q, k, v, w = (torch.from_numpy(a).to(cuda_device)
+                  for a in _attn_inputs(b, 10, 128) + _attn_inputs(b, 10, 128,
+                                                                    seed=1)[:1])
+    grads = {}
+    for name, fn in (("kernel", t_ba.block_attention),
+                     ("plain", t_ba.block_attention_plain)):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = t_ba.launches.value
+        grads[name] = torch.autograd.grad(torch.sum(fn(*ins, 1) * w), ins)
+        assert t_ba.launches.value - before == (name == "kernel")
+    scale = max(g.abs().max().item() for g in grads["plain"])
+    for g, h in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(g, h, rtol=0, atol=1e-5 * scale)

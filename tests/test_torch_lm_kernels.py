@@ -290,6 +290,55 @@ def test_ssd_kernel_ragged_state_bit_identical_to_padded(cuda_device):
     assert torch.equal(y, y2[:, :1000])
 
 
+def _grads_through(fn, ins, ws):
+    """Gradients of sum(out * w) over fn's outputs, for fresh leaves."""
+    leaves = [t.clone().requires_grad_() for t in ins]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(sum(torch.sum(o * w) for o, w in zip(outs, ws)),
+                               leaves)
+
+
+def _assert_grads_close(got, want):
+    """At 1e-5 of the largest gradient."""
+    scale = max(g.abs().max().item() for g in want)
+    for g, h in zip(got, want):
+        torch.testing.assert_close(g, h, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_gradients_match_plain(cuda_device):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 128, 4, 64, generator=g).to(cuda_device)
+    k, v = (torch.randn(1, 128, 2, 64, generator=g).to(cuda_device)
+            for _ in range(2))
+    w = torch.randn(q.shape, generator=g).to(cuda_device)
+    before = t_fa.launches.value
+    got = _grads_through(lambda *a: t_fa.flash_attention(*a, window=32),
+                         (q, k, v), (w,))
+    assert t_fa.launches.value == before + 1
+    _assert_grads_close(got, _grads_through(
+        lambda *a: t_fa.flash_attention_plain(*a, window=32), (q, k, v),
+        (w,)))
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_gradients_match_plain(cuda_device):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 100, 2, 16, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(1, 100, 2, generator=g))
+    a_log = torch.rand(2, generator=g)
+    b, c = (torch.randn(1, 100, 1, 8, generator=g) for _ in range(2))
+    ins = [t.to(cuda_device) for t in (x, dt, a_log, b, c)]
+    ws = (torch.randn(1, 100, 2, 16, generator=g).to(cuda_device),
+          torch.randn(1, 2, 16, 8, generator=g).to(cuda_device))
+    before = t_ssd.launches.value
+    got = _grads_through(lambda *a: t_ssd.ssd(*a, chunk=32), ins, ws)
+    assert t_ssd.launches.value == before + 1
+    _assert_grads_close(got, _grads_through(
+        lambda *a: t_ssd.ssd_plain(*a, chunk=32), ins, ws))
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_count_one_launch_per_call(cuda_device):
     before = (t_fa.launches.value, t_ssd.launches.value)
