@@ -48,10 +48,29 @@ Phases, each reported on its own lines:
    archive, ``decompress`` — with every kernel's launches counted, the tau
    guarantee and the disk round trip checked, and the first stripe held
    against the same path on the CPU;
-6. the launcher: ``python -m repro_torch.launch.compress --dataset e3sm
-   --quick --epochs-scale 0.25 --out <tmp> --verify`` as a subprocess, which
-   must exit 0 and print "verify OK";
-7. LM path, for qwen2-1.5b and mamba2-370m at full width with seeded
+6. the streaming path on the same fitted model and field:
+   ``stream_compress(out_path=...)`` against the batch ``compress`` at tau
+   0.5, chunk 64, ``queue_depth`` 2, timed in turns (batch, stream, stream,
+   batch), with the batch path's ``ae_encode`` seconds (what overlap can
+   hide), the scheduler's busy and overlap seconds and queue high-water
+   marks, the card's busy time and idle share over one profiled streamed
+   run, and peak device memory.  Gates: every streamed chunk section and
+   the file on disk equal the batch archive's bytes; block_attention,
+   quantize and gae_project launch on the stream run exactly as often as
+   on the batch one; the streamed file decodes within tau; a stream whose
+   sink raises after chunk 3 raises that lowest index's error and leaves a
+   ``.partial`` that ``read_archive(strict=False)`` salvages (chunks 0-3,
+   the rest damaged); and ``CompressOptions(tau=0.5, retries=3,
+   chaos_seed=0)`` finishes with every chunk either the batch's bytes or a
+   quarantined lossless verbatim chunk;
+7. the CLIs as subprocesses: ``python -m repro_torch.launch.compress
+   --dataset e3sm --quick --epochs-scale 0.25 --out <tmp> --verify`` and
+   the same with ``--stream`` at once, then ``python -m
+   repro_torch.runtime.chaosinject --seed 0`` alone (its 0.15 s deadline
+   must not share the host with training); each must exit 0 and print
+   "verify OK" (with "container written to" or "container streamed to")
+   or its three "[OK]" scenarios;
+8. LM path, for qwen2-1.5b and mamba2-370m at full width with seeded
    weights: ``forward`` over 1 x 4096 random tokens (the prefill, with its
    kernel launched once per layer) in fp32 and then with
    ``compute_dtype="bfloat16"``; the bf16 prefill's last 64 logits through
@@ -60,7 +79,7 @@ Phases, each reported on its own lines:
    serving engine's decode-step prefill on a 64-token prompt, the device
    time of one ``decode_step`` against its wall, and ``ServeEngine.serve``
    on 8 requests with raw KV and with ``kv_tau`` 0.05;
-8. one JSON line with every kernel's numbers (one row per kernel and
+9. one JSON line with every kernel's numbers (one row per kernel and
    dtype), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -784,27 +803,64 @@ def run_fit(torch, dev, counters, cfg, hb):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the launcher
+# phase 7: the CLIs
 # ---------------------------------------------------------------------------
 
-def run_launcher() -> None:
-    """``python -m repro_torch.launch.compress`` as a user runs it."""
+def _run_cli_group(runs, env, cwd) -> list:
+    """Start the ``runs`` (name, args, lines) together as subprocesses,
+    wait for all, print their output; the failures' descriptions."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable] + args, env=env, cwd=cwd,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for _, args, _ in runs]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    failed = []
+    for (name, args, lines), proc, out in zip(runs, procs, outs):
+        print(f"cli {name}: {' '.join(args)}: exit {proc.returncode} "
+              f"({len(runs)} at once, {wall:.1f} s); its output:", flush=True)
+        print("\n".join("  | " + line for line in out.splitlines()),
+              flush=True)
+        missing = [line for line in lines if line not in out]
+        if proc.returncode != 0 or missing:
+            failed.append(f"{name} exited {proc.returncode}, missing "
+                          f"{missing}")
+    return failed
+
+
+def run_clis() -> None:
+    """The CLIs as a user runs them, as subprocesses on the card: the
+    launcher in batch and with ``--stream`` at once, then the chaos gate
+    alone (its ``stage-hangs`` scenario holds stages to a 0.15 s deadline
+    and compares two runs' retry events, so it must not share the host
+    with training).  Each must exit 0 and print its lines."""
+    launcher = ["-m", "repro_torch.launch.compress", "--dataset", "e3sm",
+                "--quick", "--epochs-scale", "0.25", "--verify"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     with tempfile.TemporaryDirectory() as tmp:
-        cmd = [sys.executable, "-m", "repro_torch.launch.compress",
-               "--dataset", "e3sm", "--quick", "--epochs-scale", "0.25",
-               "--out", os.path.join(tmp, "e3sm.rba"), "--verify"]
-        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        t0 = time.perf_counter()
-        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                             timeout=600, cwd=tmp)
-        wall = time.perf_counter() - t0
-    print(f"launcher: {' '.join(cmd[1:4])} ... exit {out.returncode} in "
-          f"{wall:.1f} s; its output:", flush=True)
-    print("\n".join("  | " + line for line in
-                    (out.stdout + out.stderr).splitlines()), flush=True)
-    if out.returncode != 0 or "verify OK" not in out.stdout:
-        raise CheckFailed(f"the launcher exited {out.returncode} without "
-                          f"'verify OK'")
+        failed = _run_cli_group(
+            [("launcher", launcher + ["--out", os.path.join(tmp, "e3sm.rba")],
+              ("container written to", "verify OK")),
+             ("launcher --stream",
+              launcher + ["--out", os.path.join(tmp, "e3sm-s.rba"),
+                          "--stream"],
+              ("container streamed to", "verify OK"))], env, tmp)
+        failed += _run_cli_group(
+            [("chaos gate", ["-m", "repro_torch.runtime.chaosinject",
+                             "--seed", "0"],
+              ("[OK] transient-storm", "[OK] poison-stripes",
+               "[OK] stage-hangs", "OK: all chaos scenarios"))], env, tmp)
+    if failed:
+        raise CheckFailed("; ".join(failed))
 
 
 # ---------------------------------------------------------------------------
@@ -923,7 +979,223 @@ def run_main_path(torch, dev, counters, kernels, comp, hb) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the LM path (prefill and serving)
+# phase 6: the streaming path and its fault-tolerance ladder
+# ---------------------------------------------------------------------------
+
+STREAM_KERNELS = ("quantize", "block_attention", "gae_project")
+# batch and streamed compress in turns, three rounds each: the host coders'
+# wall spreads by a second from run to run
+STREAM_ROUNDS = ("batch", "stream", "stream", "batch", "batch", "stream")
+SALVAGE_STRIPES = 8     # the salvage run's field: the first 8 stripes
+SINK_FAULT_AFTER = 3    # its sink raises for every chunk after chunk 3
+
+
+def device_union_ms(torch, prof) -> float:
+    """Wall time, in ms, during which the card ran at least one activity a
+    ``torch.profiler`` run recorded: the union of their intervals, so that
+    work overlapping on two streams counts once."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda)
+    total, lo, hi = 0.0, None, None
+    for start, end in spans:
+        if hi is None or start > hi:
+            if hi is not None:
+                total += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    if hi is not None:
+        total += hi - lo
+    return total / 1e3
+
+
+def run_stream_path(torch, counters, comp, hb) -> None:
+    """``stream_compress`` on the fitted S3D ``comp`` (basis fitted by the
+    main path) against the batch ``compress``, in turns, with the six gates:
+    bytes, kernels on the path, the guarantee, salvage, chaos (and, in
+    ``run_clis``, the CLIs)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.stream.compress as stream_mod
+    from repro_torch.core import exec as exec_mod
+    from repro_torch.core.options import CompressOptions
+    from repro_torch.runtime import archive_io
+    from repro_torch.stream import stream_compress
+
+    cfg = comp.cfg
+    opts = CompressOptions(tau=TAU, chunk_hyperblocks=64, queue_depth=2)
+
+    def reset():
+        exec_mod.reset_stage_stats()
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+
+    def sections(archive):
+        return [archive_io.pack_chunk_section(c) for c in archive.chunks]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "s3d-stream.rba")
+        walls = {"batch": [], "stream": []}
+        launches, peaks = {}, {}
+        batch = batch_blob = None
+        batch_ae = []
+        for kind in STREAM_ROUNDS:
+            reset()
+            t0 = time.perf_counter()
+            if kind == "batch":
+                archive = comp.compress(hb, options=opts)
+            else:
+                result = stream_compress(comp, hb, out_path=path,
+                                         options=opts)
+                archive = result.archive
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t0)
+            got = {n: counters[n].value for n in STREAM_KERNELS}
+            launches.setdefault(kind, got)
+            peaks[kind] = max(peaks.get(kind, 0),
+                              torch.cuda.max_memory_allocated())
+            if launches[kind] != got:
+                raise CheckFailed(f"{kind} launches changed between rounds: "
+                                  f"{launches[kind]} then {got}")
+            if kind == "batch":
+                batch_ae.append(exec_mod.stage_stats()["ae_encode"].seconds)
+            if kind == "batch" and batch is None:
+                batch = archive
+                batch_blob = archive_io.serialize_archive(batch)
+            if kind == "stream":
+                stats, counts = result.stats, exec_mod.counters()
+                # gate 1: bytes
+                if sections(archive) != sections(batch):
+                    raise CheckFailed("a streamed chunk section differs from "
+                                      "the batch archive's")
+                with open(path, "rb") as f:
+                    if f.read() != batch_blob:
+                        raise CheckFailed("the streamed file differs from "
+                                          "serialize_archive of the batch "
+                                          "archive")
+        # gate 2: the kernels on the path, as many launches as batch
+        print(f"stream launches: {json.dumps(launches['stream'])}; batch "
+              f"compress: {json.dumps(launches['batch'])}", flush=True)
+        for name in STREAM_KERNELS:
+            if launches["stream"][name] <= 0 or \
+                    launches["stream"][name] != launches["batch"][name]:
+                raise CheckFailed(f"{name}: {launches['stream'][name]} "
+                                  f"launches streamed, "
+                                  f"{launches['batch'][name]} batch")
+        # gate 3: the guarantee, from the file on disk
+        recon = comp.decompress(archive_io.read_archive(path))
+        errs = np.linalg.norm((hb - recon).reshape(-1, cfg.gae_block_elems),
+                              axis=1)
+        if not np.isfinite(recon).all() or errs.max() > TAU * (1 + 1e-5):
+            raise CheckFailed(f"streamed archive: max GAE l2 {errs.max()} "
+                              f"over tau {TAU}")
+
+        b_wall, s_wall = (sorted(walls[k])[1] for k in ("batch", "stream"))
+        batch_ae = sorted(batch_ae)[1]
+        print(f"stream: batch compress walls "
+              f"{[round(w, 3) for w in walls['batch']]} s, stream_compress "
+              f"(to disk) {[round(w, 3) for w in walls['stream']]} s, in "
+              f"turns; medians {b_wall:.3f} and {s_wall:.3f} s, stream / "
+              f"batch {s_wall / b_wall:.4f}; batch ae_encode {batch_ae:.3f} "
+              f"s, so overlap's floor is {b_wall - batch_ae:.3f} s; the "
+              f"stream's dispatch stage was busy "
+              f"{stats.stage_busy_s['dispatch'] / stats.n_items * 1e3:.2f} "
+              f"ms a stripe against batch ae_encode's "
+              f"{batch_ae / stats.n_items * 1e3:.2f}", flush=True)
+        stage_busy = {k: round(v, 3) for k, v in stats.stage_busy_s.items()}
+        queues = {k: v for k, v in counts.items()
+                  if "queue_high_water" in k or "reorder" in k}
+        print(f"stream: {stats.n_items} stripes, busy_s {stats.busy_s:.3f}, "
+              f"overlap_s {stats.overlap_s:.3f} (stages busy at once, not "
+              f"device overlap), overlap_efficiency "
+              f"{stats.overlap_efficiency():.4f}, stage busy "
+              f"{json.dumps(stage_busy)}, queue high water "
+              f"{json.dumps(queues)}; "
+              f"peak device memory batch {peaks['batch'] / 2**30:.3f} GiB, "
+              f"stream {peaks['stream'] / 2**30:.3f} GiB; max GAE l2 "
+              f"{errs.max():.6f} (tau {TAU}) from disk", flush=True)
+
+        # one more streamed run, profiled: the card's busy time
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            stream_compress(comp, hb, out_path=path, options=opts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        union, summed = device_union_ms(torch, prof) / 1e3, \
+            device_ms(torch, prof) / 1e3
+        busy = (f"device busy {union:.3f} s (union of activities; summed "
+                f"{summed:.3f} s), idle share {1 - union / wall:.4f}"
+                if union > 0 else "device busy not measured (no profiler "
+                "events)")
+        print(f"stream profiled run: wall {wall:.3f} s; {busy}", flush=True)
+
+        # gate 4: salvage after a sink fault
+        class FailingWriter(stream_mod.StreamingArchiveWriter):
+            def append(self, index, chunk):
+                if index > SINK_FAULT_AFTER:
+                    raise RuntimeError(f"sink fault at chunk {index}")
+                super().append(index, chunk)
+
+        part = hb[:SALVAGE_STRIPES * 64]
+        bad = os.path.join(tmp, "salvage.rba")
+        writer_cls = stream_mod.StreamingArchiveWriter
+        stream_mod.StreamingArchiveWriter = FailingWriter
+        try:
+            stream_compress(comp, part, out_path=bad, options=opts)
+            raise CheckFailed("the stream with a failing sink finished")
+        except RuntimeError as e:
+            if str(e) != f"sink fault at chunk {SINK_FAULT_AFTER + 1}":
+                raise CheckFailed(f"the failing stream raised {e!r}, not the "
+                                  f"lowest index's error") from e
+        finally:
+            stream_mod.StreamingArchiveWriter = writer_cls
+        if os.path.exists(bad) or not os.path.exists(bad + ".partial"):
+            raise CheckFailed("a failed stream finalized or left no .partial")
+        salvaged = archive_io.read_archive(bad + ".partial", strict=False)
+        good = [i for i, c in enumerate(salvaged.chunks) if c is not None]
+        want = list(range(SINK_FAULT_AFTER + 1))
+        if good != want or sorted(salvaged.chunk_errors) != \
+                list(range(SINK_FAULT_AFTER + 1, SALVAGE_STRIPES)) or \
+                [archive_io.pack_chunk_section(salvaged.chunks[i])
+                 for i in want] != sections(batch)[:len(want)]:
+            raise CheckFailed(f"salvage gave chunks {good} and damage "
+                              f"{sorted(salvaged.chunk_errors)}")
+        print(f"stream salvage: the sink raised after chunk "
+              f"{SINK_FAULT_AFTER} of {SALVAGE_STRIPES}; .partial salvaged "
+              f"chunks {good}, damaged {sorted(salvaged.chunk_errors)}",
+              flush=True)
+
+        # gate 5: chaos at full width, the options-derived ladder
+        chaos_path = os.path.join(tmp, "chaos.rba")
+        t0 = time.perf_counter()
+        result = stream_compress(comp, hb, out_path=chaos_path,
+                                 options=CompressOptions(tau=TAU, retries=3,
+                                                         chaos_seed=0))
+        wall = time.perf_counter() - t0
+        disk = archive_io.read_archive(chaos_path, strict=True)
+        want_sections = sections(batch)
+        for ci, chunk in enumerate(disk.chunks):
+            if ci in result.quarantined:
+                stripe = hb[chunk.hb_start:chunk.hb_start
+                            + chunk.n_hyperblocks]
+                if not chunk.verbatim_blob or not np.array_equal(
+                        comp.decode_stripe_verbatim(chunk), stripe):
+                    raise CheckFailed(f"quarantined chunk {ci} is not a "
+                                      f"lossless verbatim chunk")
+            elif archive_io.pack_chunk_section(chunk) != want_sections[ci]:
+                raise CheckFailed(f"chaos chunk {ci} differs from batch "
+                                  f"without being quarantined")
+        print(f"stream chaos (retries 3, chaos_seed 0): wall {wall:.3f} s, "
+              f"injected {json.dumps(result.chaos_injected)}, "
+              f"{result.stats.total_retries()} retries "
+              f"{json.dumps(result.stats.retries)}, quarantined "
+              f"{result.quarantined}", flush=True)
+
+# ---------------------------------------------------------------------------
+# phase 8: the LM path (prefill and serving)
 # ---------------------------------------------------------------------------
 
 LM_MODELS = (("qwen2-1.5b", "flash_attention"), ("mamba2-370m", "ssd_scan"))
@@ -1238,8 +1510,9 @@ def main() -> int:
                                  comp, hb)
         launches = {(name, "float32"): launches[name] for name in
                     ("quantize", "block_attention", "gae_project")}
+        run_stream_path(torch, counters, comp, hb)
         del comp, hb
-        run_launcher()
+        run_clis()
         launches.update(run_lm_path(torch, dev, counters))
     except (CheckFailed, AssertionError) as e:
         print(f"FAIL: {e}", file=sys.stderr)

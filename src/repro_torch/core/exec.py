@@ -6,17 +6,23 @@ This module owns three things:
    HBAE-encode -> quantize -> dequantize -> HBAE-decode -> per-stage
    BAE-encode/quantize/decode/residual-update, with every latent quantized by
    the fused quantize kernel; ``_decode_backend`` runs dequantize -> HBAE/BAE
-   decode -> residual sum.  ``run_compress_stage`` chains them with the
-   quantized latents staying on the device, so one stripe is one upload and
-   one download.  Compress and decompress both take the AE reconstruction
-   from ``_decode_backend``, so the reconstruction the GAE guarantee was
-   verified against is exactly the one the decoder reproduces.
+   decode -> residual sum.  ``run_compress_stage_async`` chains them with the
+   quantized latents staying on the device and starts the downloads;
+   ``fetch_compress_stage`` waits for them.  ``run_compress_stage`` is the
+   two in a row, so the batch and streaming paths run one code path and
+   give the same bytes.  Compress and decompress both take the AE
+   reconstruction from ``_decode_backend``, so the reconstruction the GAE
+   guarantee was verified against is exactly the one the decoder
+   reproduces.
 
-2. **Stage timing / throughput counters** (``stage`` / ``stage_stats``).
+2. **Stage timing / throughput counters** (``stage`` / ``stage_stats``)
+   and gauges (``counter_add`` / ``counter_max``: queue depths, overlap
+   seconds of the streaming scheduler).
 
-3. **A shared worker pool** (``map_parallel``) for the chunk-striped host
-   coders: archive chunks are independently codable by design (see
-   docs/ARCHIVE_FORMAT.md).
+3. **A shared worker pool** (``map_parallel``, ``pool_submit``) for the
+   chunk-striped host coders: archive chunks are independently codable by
+   design (see docs/ARCHIVE_FORMAT.md).  ``REPRO_CODEC_WORKERS`` sets its
+   width.
 
 PyTorch runs eagerly, so the JAX package's persistent jit cache and its
 retrace accounting have no counterpart here.
@@ -28,14 +34,15 @@ import dataclasses
 import os
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterable, Optional
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Callable, Iterable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import bae as bae_mod
 from repro_torch.core import hbae as hbae_mod
+from repro_torch.core.errors import TransientStageError
 from repro_torch.core.quantization import dequantize
 from repro_torch.kernels.quantize.ops import quantize_fused
 
@@ -83,8 +90,9 @@ _STAGE_LOCK = threading.Lock()
 def stage(name: str, n_values: int = 0):
     """Time one hot-path stage; accumulates wall time + processed values.
 
-    Thread-safe: the codec worker pool enters stages concurrently, so every
-    read-modify-write of the accumulator happens under ``_STAGE_LOCK``.
+    Thread-safe: the codec worker pool and the streaming scheduler both enter
+    stages concurrently, so every read-modify-write of the accumulator
+    happens under ``_STAGE_LOCK``.
     Device work inside a stage is timed up to the point where its result is
     copied to the host, which waits for it.
     """
@@ -111,17 +119,45 @@ def stage_stats() -> dict[str, StageStat]:
 
 
 def reset_stage_stats() -> None:
-    """Clear stage timings."""
+    """Clear stage timings AND the gauge/counter registry."""
     with _STAGE_LOCK:
         _STAGES.clear()
+        _COUNTERS.clear()
+
+
+# -- gauge/counter registry (queue depths, overlap seconds, ...) ------------
+# Scalar counters that don't fit the calls/seconds/values shape of StageStat:
+# the streaming scheduler records max queue depths and measured stage
+# overlap here.  Shares _STAGE_LOCK so a stats snapshot is one lock hop.
+
+_COUNTERS: dict[str, float] = {}
+
+
+def counter_add(name: str, delta: float = 1.0) -> None:
+    with _STAGE_LOCK:
+        _COUNTERS[name] = _COUNTERS.get(name, 0.0) + float(delta)
+
+
+def counter_max(name: str, value: float) -> None:
+    """Record a high-water mark (e.g. observed queue depth)."""
+    with _STAGE_LOCK:
+        if value > _COUNTERS.get(name, float("-inf")):
+            _COUNTERS[name] = float(value)
+
+
+def counters() -> dict[str, float]:
+    with _STAGE_LOCK:
+        return dict(_COUNTERS)
 
 
 def stats_summary() -> str:
-    """Human-readable per-stage throughput report."""
-    return "\n".join(
-        f"{name}: {st.calls} calls, {st.seconds:.3f}s, "
-        f"{st.values_per_s() / 1e6:.2f} Mvalues/s"
-        for name, st in sorted(stage_stats().items()))
+    """Human-readable per-stage throughput + counter report."""
+    lines = [f"{name}: {st.calls} calls, {st.seconds:.3f}s, "
+             f"{st.values_per_s() / 1e6:.2f} Mvalues/s"
+             for name, st in sorted(stage_stats().items())]
+    lines += [f"{name}: {value:g}"
+              for name, value in sorted(counters().items())]
+    return "\n".join(lines)
 
 
 # ---------------------------------------------------------------------------
@@ -130,30 +166,73 @@ def stats_summary() -> str:
 
 _POOL: Optional[ThreadPoolExecutor] = None
 _POOL_LOCK = threading.Lock()
-_WORKERS = max(1, min(32, os.cpu_count() or 1))
+
+
+def codec_workers() -> int:
+    """Worker count for chunk-parallel host coding (env-overridable;
+    ``REPRO_CODEC_WORKERS=1`` forces the serial path)."""
+    env = os.environ.get("REPRO_CODEC_WORKERS", "")
+    if env.strip():
+        try:
+            return max(1, int(env))
+        except ValueError:
+            pass
+    return max(1, min(32, os.cpu_count() or 1))
 
 
 def _pool() -> ThreadPoolExecutor:
     global _POOL
     with _POOL_LOCK:
         if _POOL is None:
-            _POOL = ThreadPoolExecutor(max_workers=_WORKERS,
+            _POOL = ThreadPoolExecutor(max_workers=codec_workers(),
                                        thread_name_prefix="repro-codec")
         return _POOL
+
+
+def reset_pool() -> None:
+    """Tear down the shared codec pool; the next submission lazily rebuilds
+    it.  Used by tests/chaos to emulate losing the host worker pool."""
+    global _POOL
+    with _POOL_LOCK:
+        if _POOL is not None:
+            _POOL.shutdown(wait=False, cancel_futures=True)
+        _POOL = None
+
+
+def pool_submit(fn: Callable, *args, **kwargs) -> Future:
+    """Submit one call onto the shared codec pool (the streaming scheduler's
+    host-encode stage rides the same workers as ``map_parallel``).
+
+    A submission refused because the executor was shut down rebuilds the
+    pool once and resubmits; a second refusal surfaces as
+    ``TransientStageError`` so the streaming retry ladder (not the caller)
+    owns the failure.
+    """
+    global _POOL
+    try:
+        return _pool().submit(fn, *args, **kwargs)
+    except RuntimeError:
+        with _POOL_LOCK:
+            _POOL = None
+        try:
+            return _pool().submit(fn, *args, **kwargs)
+        except RuntimeError as e:
+            raise TransientStageError(
+                f"codec pool rejected submission: {e}") from e
 
 
 def map_parallel(fn: Callable, items: Iterable) -> list:
     """``[fn(x) for x in items]`` across the shared pool, order-preserving.
 
-    Runs the serial loop for <=1 items or on a one-core host.
+    Runs the serial loop for <=1 items or a 1-worker configuration.
     If several items raise, the exception propagated is always the one from
     the lowest-index failing item, as the serial loop would raise; items
     after the first detected failure are cancelled if they have not started.
     """
     items = list(items)
-    if len(items) <= 1 or _WORKERS <= 1:
+    if len(items) <= 1 or codec_workers() <= 1:
         return [fn(x) for x in items]
-    futures = [_pool().submit(fn, x) for x in items]
+    futures = [pool_submit(fn, x) for x in items]
     results: list = []
     first_err: Optional[BaseException] = None
     for f in futures:
@@ -240,23 +319,122 @@ def _device_of(params: dict) -> torch.device:
     return params["to_latent"]["w"].device
 
 
+# ---------------------------------------------------------------------------
+# the compress front-end, split into dispatch and fetch
+# ---------------------------------------------------------------------------
+# On a card the front-end runs on one dispatch stream per device, apart from
+# the default stream on which the codec pool's threads run the GAE selection.
+# Every tensor of a dispatch is made and read on that stream (the caching
+# allocator hands a freed block out again only to later work on the same
+# stream), so none needs ``record_stream``; the params, made earlier on the
+# caller's stream, are ordered by ``wait_stream``.  The stripe goes up from,
+# and the results come down into, pinned host tensors with non-blocking
+# copies; PyTorch's pinned-memory allocator records an event on each copy, so
+# a pinned block is not handed out again before its copy has finished.  Each
+# dispatch gets its own result tensors, which live as long as the numpy views
+# ``fetch_compress_stage`` returns of them.
+
+_DISPATCH_STREAMS: dict = {}
+_DISPATCH_LOCK = threading.Lock()
+
+
+def _dispatch_stream(device: torch.device):
+    """The dispatch stream of ``device``, made on first use."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    with _DISPATCH_LOCK:
+        stream = _DISPATCH_STREAMS.get(index)
+        if stream is None:
+            stream = _DISPATCH_STREAMS[index] = torch.cuda.Stream(index)
+        return stream
+
+
+def _pinned_from(a: np.ndarray) -> Tensor:
+    """numpy float32 -> a new pinned host tensor holding a copy of it."""
+    buf = torch.empty(a.shape, dtype=torch.float32, pin_memory=True)
+    buf.numpy()[...] = a
+    return buf
+
+
+def _pinned_copy_of(t: Tensor) -> Tensor:
+    """Start the device-to-host copy of ``t`` into a new pinned tensor on
+    the current stream."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
+class StageHandles(NamedTuple):
+    """What ``run_compress_stage_async`` hands back: the host tensors the
+    results land in and the event that marks their arrival (``None`` on the
+    CPU, where the work is done when the call returns)."""
+    q_lh: Tensor
+    q_lbs: list
+    recon: Tensor
+    done: Optional[object]
+
+
 @torch.inference_mode()
+def run_compress_stage_async(hbae_params: dict, bae_params: list,
+                             hyperblocks: np.ndarray, hb_bin: float,
+                             bae_bin: float) -> StageHandles:
+    """Dispatch the compress front-end on the params' device WITHOUT waiting
+    for its result: one upload, the two stage functions (latents stay on the
+    device between them), and the downloads of ``q_lh``, each ``q_lb`` and
+    ``recon`` started.  The streaming scheduler dispatches stripe *i+1*
+    while stripe *i*'s results are still being computed or copied.  Pass
+    the handles to ``fetch_compress_stage``.
+
+    The stream and ``inference_mode`` are entered here, in the calling
+    thread: both are thread-local, and the scheduler may call this from a
+    fresh watchdog thread.  On the CPU the work runs to its end in the call.
+    """
+    device = _device_of(hbae_params)
+    if device.type != "cuda":
+        x = upload(hyperblocks, device, np.float32)
+        q_lh, q_lbs = _encode_frontend(hbae_params, bae_params, x, hb_bin,
+                                       bae_bin)
+        recon = _decode_backend(hbae_params, bae_params, q_lh, q_lbs, hb_bin,
+                                bae_bin)
+        return StageHandles(q_lh, q_lbs, recon, None)
+    stream = _dispatch_stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        x = _pinned_from(np.ascontiguousarray(hyperblocks, np.float32)).to(
+            device, non_blocking=True)
+        q_lh, q_lbs = _encode_frontend(hbae_params, bae_params, x, hb_bin,
+                                       bae_bin)
+        recon = _decode_backend(hbae_params, bae_params, q_lh, q_lbs, hb_bin,
+                                bae_bin)
+        host = [_pinned_copy_of(t) for t in (q_lh, *q_lbs, recon)]
+        done = torch.cuda.Event()
+        done.record(stream)
+    return StageHandles(host[0], host[1:-1], host[-1], done)
+
+
+def fetch_compress_stage(handles: StageHandles
+                         ) -> tuple[np.ndarray, list[np.ndarray], np.ndarray]:
+    """Wait until the dispatched front-end's downloads have landed and return
+    numpy views of them; the views share memory with the host tensors and
+    keep them alive."""
+    if handles.done is not None:
+        handles.done.synchronize()
+    return (handles.q_lh.numpy(), [q.numpy() for q in handles.q_lbs],
+            handles.recon.numpy())
+
+
 def run_compress_stage(hbae_params: dict, bae_params: list,
                        hyperblocks: np.ndarray, hb_bin: float, bae_bin: float
                        ) -> tuple[np.ndarray, list[np.ndarray], np.ndarray]:
-    """Device-resident compress front-end on the params' device: one upload,
-    the two stage functions (latents stay on the device between them), one
-    download.
+    """Device-resident compress front-end, run to its end: the batch path's
+    ``fetch_compress_stage(run_compress_stage_async(...))``.
 
     Returns numpy ``(q_lh, [q_lb per stage], recon)``; ``recon`` is computed
     by the same ``_decode_backend`` ``run_decompress_stage`` uses, so the GAE
     encoder corrects exactly what the decoder will reproduce.
     """
-    x = upload(hyperblocks, _device_of(hbae_params), np.float32)
-    q_lh, q_lbs = _encode_frontend(hbae_params, bae_params, x, hb_bin, bae_bin)
-    recon = _decode_backend(hbae_params, bae_params, q_lh, q_lbs, hb_bin,
-                            bae_bin)
-    return _download(q_lh), [_download(q) for q in q_lbs], _download(recon)
+    return fetch_compress_stage(run_compress_stage_async(
+        hbae_params, bae_params, hyperblocks, hb_bin, bae_bin))
 
 
 @torch.inference_mode()

@@ -1,12 +1,12 @@
 """Compress configuration: ``CompressOptions``.
 
 The fields and their validation follow the JAX package's ``core/options.py``,
-so one options object means the same run in both packages.  The PyTorch
-compressor runs the batch path only, configured by ``tau`` and
-``chunk_hyperblocks``; ``HierarchicalCompressor.compress`` raises
-``ConfigError`` for ``stream``, ``queue_depth``, ``mesh``, ``retries``,
-``stage_deadline_s`` and ``chaos_seed`` away from their defaults, which
-belong to paths not ported yet.
+so one options object means the same run in both packages.  The batch
+``HierarchicalCompressor.compress`` reads ``tau`` and ``chunk_hyperblocks``
+and ignores the streaming and fault-tolerance fields, as the JAX one does;
+``repro_torch.stream.stream_compress`` and the launcher route on them.
+``mesh`` (sharding) is not ported: ``compress`` raises ``ConfigError`` for
+it.
 
 Validation happens at CONSTRUCTION time and raises a typed
 :class:`~repro_torch.core.errors.ConfigError`, so a zero-width chunk fails
@@ -30,10 +30,14 @@ class CompressOptions:
       independently-decodable archive chunk).  The pipeline may round it UP
       for GAE block alignment; a non-positive width is a
       :class:`ConfigError` here.
-    * ``stream``, ``queue_depth``, ``retries``, ``stage_deadline_s``,
-      ``chaos_seed``, ``mesh`` — the JAX package's streaming,
-      fault-tolerance and sharding knobs; validated, but rejected by
-      ``compress`` unless left at their defaults.
+    * ``stream`` — run the pipelined path (the launcher's ``--stream``).
+    * ``queue_depth`` — bound of the streaming scheduler's inter-stage
+      queues (backpressure).
+    * ``retries``, ``stage_deadline_s``, ``chaos_seed`` — any one set arms
+      the streaming retry → deadline → quarantine ladder
+      (``fault_tolerant``); ``chaos_seed`` also injects seeded faults.
+    * ``mesh`` — the JAX package's sharding knob; validated, but refused by
+      ``compress`` (not ported).
     """
     tau: Optional[float] = None
     chunk_hyperblocks: int = 64
@@ -71,6 +75,12 @@ class CompressOptions:
                                       or self.mesh < 1):
             raise ConfigError(f"mesh must be None or a shard count >= 1, "
                               f"got {self.mesh!r}")
+
+    def fault_tolerant(self) -> bool:
+        """True when any fault-tolerance knob is set (retries / deadline /
+        chaos) — the streaming path then arms the retry→quarantine ladder."""
+        return (self.retries is not None or self.stage_deadline_s is not None
+                or self.chaos_seed is not None)
 
     def replace(self, **changes) -> "CompressOptions":
         """Functional update (re-validates)."""

@@ -40,10 +40,9 @@ from repro_torch.core.errors import (ArchiveError, ChecksumMismatch, ChunkDamage
                                      GuaranteeUnsatisfiable, MalformedStream)
 from repro_torch.core.options import CompressOptions
 
-#: CompressOptions fields of the JAX package's streaming, sharding and
-#: fault-tolerance paths, which this package does not run yet.
-_UNPORTED_OPTIONS = ("stream", "queue_depth", "mesh", "retries",
-                     "stage_deadline_s", "chaos_seed")
+#: CompressOptions fields of the JAX package's paths that this package does
+#: not run yet (sharding).
+_UNPORTED_OPTIONS = ("mesh",)
 
 
 def unported_options(opts: CompressOptions) -> list[str]:
@@ -459,14 +458,26 @@ class HierarchicalCompressor:
         return np.frombuffer(raw, "<f4").reshape(
             chunk.n_hyperblocks, cfg.k, cfg.block_elems).copy()
 
+    def prepare_compress(self, hyperblocks: np.ndarray,
+                         tau: Optional[float]) -> int:
+        """Shared compress preamble: fit the PCA basis if the caller asked
+        for a guarantee and none exists yet.  Returns ``gae_dim``."""
+        if tau is not None:
+            if self.basis is None:
+                self.fit_basis(hyperblocks)
+            return int(self.basis.shape[0])
+        return 0
+
     def compress(self, hyperblocks: np.ndarray,
                  options: Optional[CompressOptions] = None) -> Archive:
         """Batch compress: the device front-end runs stripe by stripe, then
         the host GAE/entropy coders fan out over the finished stripes on the
-        codec pool.
+        codec pool.  ``repro_torch.stream.stream_compress`` runs the same
+        per-stripe stages pipelined and produces byte-identical chunks.
 
-        Configuration comes in as one ``CompressOptions``; options of paths
-        not ported yet raise ``ConfigError``.
+        Configuration comes in as one ``CompressOptions``.  The streaming and
+        fault-tolerance fields are not read here, as in the JAX package;
+        ``mesh`` (not ported) raises ``ConfigError``.
         """
         opts = options if options is not None else CompressOptions()
         unported = unported_options(opts)
@@ -475,11 +486,7 @@ class HierarchicalCompressor:
                               f"PyTorch compressor yet")
         tau = opts.tau
         n = hyperblocks.shape[0]
-        gae_dim = 0
-        if tau is not None:
-            if self.basis is None:
-                self.fit_basis(hyperblocks)
-            gae_dim = int(self.basis.shape[0])
+        gae_dim = self.prepare_compress(hyperblocks, tau)
         spans = self.stripe_spans(n, opts.chunk_hyperblocks,
                                   with_gae=tau is not None)
 

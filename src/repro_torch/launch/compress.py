@@ -14,10 +14,14 @@ a guarantee violation (and, from argparse, on a bad command line), 3 when
 the container cannot be written or the disk re-read fails, differs from the
 in-memory decode or breaks tau.
 
-``--stream``, ``--queue-depth``, ``--retries``, ``--stage-deadline``,
-``--chaos`` and ``--mesh`` are the JAX package's streaming, fault-tolerance
-and sharding paths, not ported yet: they are refused at parse time, before
-any training.
+``--stream`` runs the pipelined compress path (repro_torch.stream): host
+GAE/entropy coding of chunk *i* overlaps the device stage of chunk *i+1*,
+and with ``--out`` finished chunk sections stream to disk as they complete
+(crash-safe ``<out>.partial``, atomic finalize; exit 3 when the streaming
+write fails).  The container is byte-identical to the batch path's.
+``--retries``, ``--stage-deadline`` and ``--chaos`` arm its fault-tolerance
+ladder and need ``--stream``.  ``--mesh`` (sharding) is not ported: it is
+refused at parse time, before any training.
 """
 from __future__ import annotations
 
@@ -34,9 +38,7 @@ from repro_torch.core.pipeline import HierarchicalCompressor, unported_options
 from repro_torch.data import synthetic
 from repro_torch.data.blocks import nrmse
 
-_FLAGS = {"stream": "--stream", "queue_depth": "--queue-depth",
-          "retries": "--retries", "stage_deadline_s": "--stage-deadline",
-          "chaos_seed": "--chaos", "mesh": "--mesh"}
+_FLAGS = {"mesh": "--mesh"}
 
 
 def _max_block_err(hyperblocks: np.ndarray, recon: np.ndarray,
@@ -67,15 +69,21 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     ap.add_argument("--stream", action="store_true",
-                    help="pipelined compress: not ported yet, refused")
+                    help="pipelined compress (device/host overlap); with "
+                    "--out, chunk sections stream to disk as they finish")
     ap.add_argument("--queue-depth", type=int, default=2,
-                    help="--stream queue bound: not ported yet, refused")
+                    help="--stream inter-stage queue bound (backpressure)")
     ap.add_argument("--retries", type=int, default=None,
-                    help="--stream fault tolerance: not ported yet, refused")
+                    help="--stream fault tolerance: per-item transient-"
+                    "failure retries (seeded backoff); enables the "
+                    "quarantine fallback for permanently failing stripes")
     ap.add_argument("--stage-deadline", type=float, default=None,
-                    help="--stream watchdog: not ported yet, refused")
+                    help="--stream per-attempt watchdog deadline in seconds "
+                    "for the compute stages (implies --retries)")
     ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
-                    help="--stream chaos drill: not ported yet, refused")
+                    help="--stream chaos drill: inject seeded transient "
+                    "faults into the live pipeline (implies fault "
+                    "tolerance); the run must still honor tau")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
                     help="sharded stage programs: not ported yet, refused")
     args = ap.parse_args(argv)
@@ -114,7 +122,37 @@ def main(argv=None) -> int:
     print(f"fit in {time.time() - t0:.1f}s")
 
     exec_mod.reset_stage_stats()
-    archive = comp.compress(hyperblocks, options=opts)
+    streamed_bytes = 0
+    if opts.stream:
+        from repro_torch.stream import stream_compress
+        try:
+            # fault tolerance + chaos arm themselves from opts (retries /
+            # stage_deadline_s / chaos_seed)
+            result = stream_compress(comp, hyperblocks, options=opts,
+                                     out_path=args.out or None)
+        except OSError as e:
+            print(f"ERROR: streaming write failed: {e}", file=sys.stderr)
+            return 3
+        archive, streamed_bytes = result.archive, result.bytes_written
+        s = result.stats
+        print(f"stream: {s.n_items} items -> {len(archive.chunks)} chunks "
+              f"in {s.wall_s:.2f}s, stage overlap {s.overlap_s:.2f}s "
+              f"({s.overlap_efficiency() * 100:.0f}% of wall), "
+              f"queue high-water {s.queue_high_water}")
+        if opts.fault_tolerant():
+            print(f"fault tolerance: {s.total_retries()} retries "
+                  f"{dict(s.retries)}, deadline hits "
+                  f"{dict(s.deadline_hits)}, failovers {dict(s.failovers)}")
+        if opts.chaos_seed is not None:
+            print(f"chaos injected: {result.chaos_injected}")
+        if result.quarantined:
+            print(f"QUARANTINED {len(result.quarantined)} chunk(s) "
+                  f"{result.quarantined}: re-encoded as lossless verbatim "
+                  f"fallback (tau holds trivially)")
+            for ci in result.quarantined:
+                print(f"  chunk {ci}: {result.quarantine_reasons.get(ci, '?')}")
+    else:
+        archive = comp.compress(hyperblocks, options=opts)
     recon = comp.decompress(archive)
     print("-- hot-path stage throughput --")
     print(exec_mod.stats_summary())
@@ -136,7 +174,12 @@ def main(argv=None) -> int:
     print(f"max per-block l2: {errs.max():.4f} <= tau={args.tau}")
 
     from repro_torch.runtime import archive_io
-    if args.out:
+    if args.out and args.stream:
+        # already on disk: the streaming writer finalized it chunk by chunk
+        print(f"container streamed to {args.out} "
+              f"({streamed_bytes:,} bytes = {len(archive.chunks)} chunks; "
+              f"on-disk ratio {hyperblocks.size * 4 / streamed_bytes:.1f}x)")
+    elif args.out:
         try:
             nbytes = archive_io.write_archive(archive, args.out)
         except OSError as e:

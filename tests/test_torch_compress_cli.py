@@ -3,15 +3,17 @@ the CPU, on E3SM ``--quick --epochs-scale 0.05`` (36 hyper-blocks, one HBAE
 and one BAE step).
 
 Both launchers exit 0 and print "verify OK"; the port exits 2 on a
-guarantee violation, 3 when the disk re-read raises ``ArchiveError``, and
-refuses every flag of a path it does not run at parse time, before it makes
-a dataset or trains.
+guarantee violation, 3 when the disk re-read raises ``ArchiveError`` or the
+streaming write fails, streams with ``--stream`` (and its fault-tolerance
+flags), and refuses ``--mesh`` (not ported) and the fault-tolerance flags
+without ``--stream`` at parse time, before it makes a dataset or trains.
 """
 from __future__ import annotations
 
 import pytest
 
 from repro.launch import compress as j_cli
+from repro.runtime import archive_io as j_io
 from repro_torch.core.errors import ArchiveError
 from repro_torch.core.pipeline import HierarchicalCompressor
 from repro_torch.data import synthetic
@@ -74,9 +76,33 @@ def test_port_launcher_exits_3_when_the_reread_fails(monkeypatch, tmp_path,
 
 
 @pytest.mark.parametrize("flags", [
-    ["--stream"], ["--queue-depth", "3"], ["--stream", "--retries", "1"],
-    ["--stream", "--stage-deadline", "5"], ["--stream", "--chaos", "0"],
-    ["--mesh", "2"], ["--retries", "1"]])
+    ["--stream"], ["--stream", "--queue-depth", "3"],
+    ["--stream", "--retries", "1"], ["--stream", "--stage-deadline", "5"],
+    ["--stream", "--chaos", "0"]])
+def test_port_launcher_streams(flags, tmp_path, capsys):
+    out_path = str(tmp_path / "s.rba")
+    rc, out, err = _run(t_cli.main, ARGS + [
+        "--out", out_path, "--verify", "--device", "cpu"] + flags, capsys)
+    assert rc == 0, err
+    for line in ("stream: 1 items -> 1 chunks", "container streamed to",
+                 "verify OK: disk round-trip bit-exact"):
+        assert line in out
+    if "--chaos" in flags:
+        assert "fault tolerance:" in out and "chaos injected:" in out
+    assert len(j_io.read_archive(out_path).chunks) == 1   # JAX reads it
+    assert not (tmp_path / "s.rba.partial").exists()
+
+
+def test_port_launcher_exits_3_when_the_streaming_write_fails(tmp_path,
+                                                              capsys):
+    rc, out, err = _run(t_cli.main, ARGS + [
+        "--out", str(tmp_path / "missing" / "s.rba"), "--device", "cpu",
+        "--stream"], capsys)
+    assert rc == 3 and "streaming write failed" in err
+    assert "container streamed to" not in out
+
+
+@pytest.mark.parametrize("flags", [["--mesh", "2"], ["--retries", "1"]])
 def test_port_launcher_refuses_unported_flags_at_parse_time(flags,
                                                             monkeypatch,
                                                             capsys):

@@ -43,7 +43,10 @@ PORT_MODULES = ("repro_torch.core.pipeline", "repro_torch.runtime.archive_io",
                 "repro_torch.core.training", "repro_torch.launch.compress",
                 "repro_torch.baselines.codec", "repro_torch.baselines.szlike",
                 "repro_torch.baselines.zfplike",
-                "repro_torch.baselines.block_ae")
+                "repro_torch.baselines.block_ae", "repro_torch.stream",
+                "repro_torch.runtime.stream_writer",
+                "repro_torch.runtime.chaosinject",
+                "repro_torch.runtime.faultinject")
 
 
 def test_importing_the_port_loads_no_jax():

@@ -130,10 +130,21 @@ def test_damage_report_matches_jax(pair):
 
 def test_unported_options_raise(hb, pair):
     _, tc, _, _ = pair
-    for opt in (dict(stream=True), dict(mesh=2), dict(retries=1),
-                dict(stage_deadline_s=1.0), dict(chaos_seed=0)):
-        with pytest.raises(ConfigError):
-            tc.compress(hb, options=TOptions(tau=TAU, **opt))
+    with pytest.raises(ConfigError, match="mesh"):
+        tc.compress(hb, options=TOptions(tau=TAU, mesh=2))
+
+
+@pytest.mark.parametrize("opt", [
+    dict(stream=True, queue_depth=3), dict(retries=1),
+    dict(stage_deadline_s=1.0), dict(chaos_seed=0)],
+    ids=["stream", "retries", "stage_deadline_s", "chaos_seed"])
+def test_stream_and_fault_options_leave_batch_bytes_unchanged(hb, pair, opt):
+    """The batch ``compress`` does not read the streaming and
+    fault-tolerance fields, as the JAX one does not."""
+    _, tc, _, t_blob = pair
+    arch = tc.compress(hb, options=TOptions(tau=TAU, chunk_hyperblocks=4,
+                                            **opt))
+    assert t_io.serialize_archive(arch) == t_blob
 
 
 def test_default_device_is_the_card(monkeypatch):
