@@ -79,8 +79,29 @@ Phases, each reported on its own lines:
    serving engine's decode-step prefill on a 64-token prompt, the device
    time of one ``decode_step`` against its wall, and ``ServeEngine.serve``
    on 8 requests with raw KV and with ``kv_tau`` 0.05;
-9. one JSON line with every kernel's numbers (one row per kernel and
-   dtype), then the result line
+9. LM training: gae_project and quantize at (841728, 256), the shape a
+   gae train step gives them on mamba2-370m's in_proj, against their
+   plain versions and timed (rows with ``"path": "train"``); one train
+   step's loss and gradients of reduced qwen2-1.5b and mamba2-370m on the
+   card against the CPU (1e-5; 1e-5 of each leaf's largest); qwen2-1.5b at
+   full width and depth trained 8 AdamW steps of B 1 x S 4096 with
+   ``ce_chunk`` 512 (gates: finite losses, the last below step 0's,
+   flash_attention launched 28 times a step; printed: steps/s, tokens/s,
+   the card's busy time and idle share over 2 profiled steps, peak
+   memory); on seeded full-width mamba2-370m params, the gae mode's
+   gradients within tau 1e-3 in every block (ssd_scan once per layer,
+   quantize and gae_project once per leaf) and ``save_compressed`` /
+   ``restore_compressed`` at tau 0.45 with every block within it;
+   mamba2-370m through ``python -m repro_torch.launch.train`` (2 steps
+   with a checkpoint every 2 and ``--grad-compression pca_ef`` at once,
+   then ``--resume`` for 2 more and ``--grad-compression gae`` at once;
+   gates: exit 0, ``resumed at step 2``, ssd_scan 48 launches a step, the
+   gae run's quantize and gae_project once per leaf); and a reduced
+   ``ResilientRunner`` with ``chaos_wrap`` on the card, which restores
+   twice and ends where the uninterrupted run ends (bit for bit is
+   printed; held within 1 % of the summed learning rate);
+10. one JSON line with every kernel's numbers (one row per kernel and
+   dtype, and the train rows), then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the result line.  Without a CUDA
@@ -90,6 +111,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -218,6 +240,33 @@ def time_ms(torch, fn, iters: int = 30, warmup: int = 3,
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def kernel_row(rows, name, source, replaces, err, ms, plain, lib, n_bytes,
+               n_flops, peak=FP32_FLOPS, dtype="float32", path=None):
+    """The JSON row of a kernel (one per kernel and dtype, and per ``path``
+    where a later phase times the kernel at its own shape): the numbers of
+    its first shape, the largest error over all; returns the bound."""
+    b_ms, b_by = bound_ms(n_bytes, n_flops, peak)
+    key = (name, dtype) if path is None else (name, dtype, path)
+    if key not in rows:
+        rows[key] = {
+            "name": name, "dtype": dtype, "route": "cuda",
+            "source": source, "replaces": replaces, "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+        if path is not None:
+            rows[key]["path"] = path
+    rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], err)
+    return b_ms, b_by
+
+
+def report_kernel(name, shape, err, t, t_plain, t_lib, b_ms, b_by) -> None:
+    lib_s = "none" if t_lib is None else f"{t_lib[0]:.5f} ({t_lib[1]:.5f})"
+    print(f"kernel {name} {shape}: max_abs_err {err:.3e}  device ms "
+          f"(per call ms): kernel {t[0]:.5f} ({t[1]:.5f})  plain "
+          f"{t_plain[0]:.5f} ({t_plain[1]:.5f})  library {lib_s}  "
+          f"bound {b_ms:.5f} ({b_by})", flush=True)
+
+
 def check_kernels(torch, dev) -> dict:
     """Every kernel at the main path's shapes; returns the JSON rows keyed by
     kernel name (numbers at each kernel's first, main shape)."""
@@ -232,25 +281,10 @@ def check_kernels(torch, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
 
-    def row(name, source, replaces, err, ms, plain, lib, n_bytes, n_flops,
-            peak=FP32_FLOPS, dtype="float32"):
-        b_ms, b_by = bound_ms(n_bytes, n_flops, peak)
-        if (name, dtype) not in rows:
-            rows[name, dtype] = {
-                "name": name, "dtype": dtype, "route": "cuda",
-                "source": source, "replaces": replaces, "launches": 0,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
-        rows[name, dtype]["max_abs_err"] = max(
-            rows[name, dtype]["max_abs_err"], err)
-        return b_ms, b_by
+    def row(*args, **kw):
+        return kernel_row(rows, *args, **kw)
 
-    def report(name, shape, err, t, t_plain, t_lib, b_ms, b_by):
-        lib_s = "none" if t_lib is None else f"{t_lib[0]:.5f} ({t_lib[1]:.5f})"
-        print(f"kernel {name} {shape}: max_abs_err {err:.3e}  device ms "
-              f"(per call ms): kernel {t[0]:.5f} ({t[1]:.5f})  plain "
-              f"{t_plain[0]:.5f} ({t_plain[1]:.5f})  library {lib_s}  "
-              f"bound {b_ms:.5f} ({b_by})", flush=True)
+    report = report_kernel
 
     # quantize: GAE coefficients (37120,80); latents per stripe (64,128),
     # (640,16); latents of fit_basis's one pass over all 1600 hyper-blocks
@@ -1455,6 +1489,479 @@ def _to_cpu(tree):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: LM training
+# ---------------------------------------------------------------------------
+
+# gae_project and quantize at the gae train step's largest leaf:
+# mamba2-370m's stacked in_proj (48 x 1024 x 4384) in blocks of 256
+TRAIN_GAE_BLOCKS = 48 * 1024 * 4384 // 256
+GAE_BLOCK = 256
+GRAD_BIN = 1e-4           # gae_compress_grads' bin
+# qwen2-1.5b at full width and depth: B 1 x S 4096 (the prefill cell's
+# shape) from SyntheticCorpus, the LM head and CE in chunks of 512, AdamW
+# (warmup-cosine to TRAIN_LR over the run, clipping at 1.0, decay 0.01)
+TRAIN_STEPS = 8
+TRAIN_PROFILED = 2        # the last steps, under the profiler
+TRAIN_SEQ = 4096
+TRAIN_CE_CHUNK = 512
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+# mamba2-370m through the launcher: B 1 x S 2048, two at a time
+LAUNCH_SEQ = 2048
+# the launcher's gae bound: RunConfig.grad_comp_tau 0 means 1e-3
+GRAD_TAU = 1e-3
+# the compressed checkpoint of the seeded mamba2-370m params: just under
+# the per-block l2 norm (about 0.5) of the lecun-scaled in_proj and unembed
+CKPT_TAU = 0.45
+# the chaos run: reduced qwen2-1.5b, 6 steps, failures at calls 2 and 5,
+# checkpoints every 2 steps; held to the uninterrupted run within 1 % of the
+# summed learning rate (any reduction whose order varies on the card moves
+# Adam's update where |g| is near eps; tests/test_torch_train.py's bound)
+CHAOS_STEPS, CHAOS_FAILS = 6, {2, 5}
+
+# ``python -m repro_torch.launch.train`` with the kernels' launch counts
+# printed after it returns: runpy runs the module as ``-m`` does
+LAUNCHER = (
+    "import json, runpy, sys\n"
+    "sys.argv[0] = 'repro_torch.launch.train'\n"
+    "runpy.run_module('repro_torch.launch.train', run_name='__main__',\n"
+    "                 alter_sys=True)\n"
+    "from repro_torch.kernels.flash_attention import ops as fa\n"
+    "from repro_torch.kernels.gae_project import ops as gp\n"
+    "from repro_torch.kernels.quantize import ops as qz\n"
+    "from repro_torch.kernels.ssd_scan import ops as sd\n"
+    "print('launches ' + json.dumps({'flash_attention': fa.launches.value,\n"
+    "      'ssd_scan': sd.launches.value, 'quantize': qz.launches.value,\n"
+    "      'gae_project': gp.launches.value}))\n")
+
+
+def run_train_path(torch, dev, counters, rows) -> dict:
+    """Phase 9; returns the launches of the train rows of gae_project and
+    quantize (one each per leaf of a gae step through the launcher)."""
+    check_train_kernels(torch, dev, rows)
+    train_card_vs_cpu(torch, dev, counters)
+    train_qwen(torch, dev, counters)
+    n_leaves = train_mamba_in_process(torch, dev, counters)
+    gae = train_launcher(n_leaves)
+    train_chaos(torch, dev)
+    return {(name, "float32", "train"): gae[name]
+            for name in ("gae_project", "quantize")}
+
+
+def check_train_kernels(torch, dev, rows) -> None:
+    """gae_project and quantize at (TRAIN_GAE_BLOCKS, 256), the shape a gae
+    train step gives them on mamba2-370m's in_proj, against their plain
+    versions; new rows of the table (``path`` "train")."""
+    from repro_torch.kernels.gae_project import ops as gp
+    from repro_torch.kernels.quantize import ops as qz
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n, d = TRAIN_GAE_BLOCKS, GAE_BLOCK
+    r = torch.randn(n, d, generator=gen, device=dev)
+    u = torch.linalg.qr(torch.randn(d, d, generator=gen,
+                                    device=dev))[0].contiguous()
+    got = gp.gae_project(r, u)
+    want = gp.gae_project_plain(r, u)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=3e-5, rtol=3e-5)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    t = time_ms(torch, lambda: gp.gae_project(r, u), iters=10)
+    t_plain = time_ms(torch, lambda: gp.gae_project_plain(r, u), iters=10)
+    t_lib = time_ms(torch, lambda: torch.matmul(r, u), iters=10)
+    b_ms, b_by = kernel_row(
+        rows, "gae_project", "src/repro_torch/csrc/gae_project.cu",
+        "src/repro/kernels/gae_project/kernel.py:25", err, t[0], t_plain[0],
+        t_lib[0], 4 * (n * d + d * d + 2 * n * d), 2 * n * d * d + n * d,
+        path="train")
+    report_kernel("gae_project", (n, d, d, "train"), err, t, t_plain, t_lib,
+                  b_ms, b_by)
+    c = got[0]
+    del got, want, r
+    q = qz.quantize_fused(c, GRAD_BIN)
+    for g, w in zip(q, qz.quantize_fused_plain(c, GRAD_BIN)):
+        if not torch.equal(g, w):
+            raise CheckFailed(f"quantize {(n, d)} at bin {GRAD_BIN}: kernel "
+                              f"output is not bit-identical to the plain "
+                              f"version")
+    del q
+    t = time_ms(torch, lambda: qz.quantize_fused(c, GRAD_BIN), iters=10)
+    t_plain = time_ms(torch, lambda: qz.quantize_fused_plain(c, GRAD_BIN),
+                      iters=10)
+    b_ms, b_by = kernel_row(
+        rows, "quantize", "src/repro_torch/csrc/quantize.cu",
+        "src/repro/kernels/quantize/kernel.py:25", 0.0, t[0], t_plain[0],
+        None, 16 * n * d, 5 * n * d, path="train")
+    report_kernel("quantize", (n, d, "train"), 0.0, t, t_plain, None, b_ms,
+                  b_by)
+    del c
+    torch.cuda.empty_cache()
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _grads_per_leaf_close(what, got, want, frac=1e-5) -> float:
+    """Fails unless every gradient leaf in ``got`` is within ``frac`` of
+    its ``want`` leaf's largest; returns the largest ratio of the two."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        scale = w.abs().max().item()
+        err = (g.cpu() - w).abs().max().item()
+        worst = max(worst, err / scale if scale else err)
+        if err > frac * scale:
+            raise CheckFailed(f"{what}: a gradient on the card differs from "
+                              f"the CPU's by {err:.3e}, more than {frac} x "
+                              f"its leaf's largest {scale:.3e}")
+    return worst
+
+
+def train_card_vs_cpu(torch, dev, counters) -> None:
+    """One train step's loss and gradients of reduced qwen2-1.5b and
+    mamba2-370m on the card (the kernels) against the CPU (their plain
+    versions): the loss at 1e-5, every gradient at 1e-5 of its leaf's
+    largest; TF32 off.  The step itself also runs on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+    from repro_torch.models import registry
+    from repro_torch.train import loop, optim
+
+    for arch, kernel in LM_MODELS:
+        cfg = registry.reduced_config(get_config(arch))
+        run = RunConfig(ce_chunk=16)
+        params = registry.init_params(cfg, run,
+                                      torch.Generator().manual_seed(0), "cpu")
+        batch = SyntheticCorpus(TokenPipelineConfig(
+            vocab=cfg.vocab, seq_len=64, global_batch=2)).batch_at(0)
+        tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+        grad_fn = loop.value_and_grad(cfg, run)
+        l_cpu, g_cpu = grad_fn(params, tb)
+        for c in counters.values():
+            c.reset()
+        l_dev, g_dev = grad_fn(_tree_to(params, dev), _tree_to(tb, dev))
+        n = counters[kernel].value
+        if n != cfg.n_layers:
+            raise CheckFailed(f"{arch} reduced: the train step's forward "
+                              f"launched {kernel} {n} times, not once per "
+                              f"layer ({cfg.n_layers})")
+        if not abs(l_dev.item() - l_cpu.item()) <= 1e-5 * abs(l_cpu.item()):
+            raise CheckFailed(f"{arch} reduced: loss on the card "
+                              f"{l_dev.item()} against the CPU's "
+                              f"{l_cpu.item()}")
+        worst = _grads_per_leaf_close(f"{arch} reduced",
+                                      optim.tree_leaves(g_dev),
+                                      optim.tree_leaves(g_cpu))
+        opt = optim.adamw(1e-3)
+        state = loop.TrainState(params=_tree_to(params, dev),
+                                opt=opt.init(_tree_to(params, dev)), gc=None,
+                                step=torch.zeros((), dtype=torch.int32,
+                                                 device=dev))
+        _, m = loop.make_train_step(cfg, run, opt)(state, batch)
+        print(f"train {arch} reduced, card against CPU: loss {l_dev.item():.6f}"
+              f" / {l_cpu.item():.6f}, gradients within {worst:.3e} of each "
+              f"leaf's largest (gate 1e-5), {kernel} launched {n}; the step "
+              f"on the card: loss {float(m['loss']):.6f}", flush=True)
+
+
+def train_qwen(torch, dev, counters) -> None:
+    """qwen2-1.5b at full width and depth, TRAIN_STEPS AdamW steps of
+    B 1 x S 4096; gates: finite losses, the last below the first,
+    flash_attention launched exactly once per layer each step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+    from repro_torch.train import loop, optim
+
+    cfg = get_config("qwen2-1.5b")
+    run = RunConfig(ce_chunk=TRAIN_CE_CHUNK)
+    opt = optim.adamw(optim.warmup_cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                                   TRAIN_STEPS),
+                      weight_decay=0.01, max_grad_norm=1.0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = loop.init_train_state(torch.Generator(dev).manual_seed(0), cfg,
+                                  run, opt, dev)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    step_fn = loop.make_train_step(cfg, run, opt)
+    corpus = SyntheticCorpus(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1, seed=0))
+    losses, walls, launches = [], [], []
+
+    def one_step(state, i):
+        batch = corpus.batch_at(i)
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append({name: c.value for name, c in counters.items()})
+        return state
+
+    profiled_from = TRAIN_STEPS - TRAIN_PROFILED
+    for i in range(profiled_from):
+        state = one_step(state, i)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(profiled_from, TRAIN_STEPS):
+            state = one_step(state, i)
+    busy_ms = device_union_ms(torch, prof)
+    # where the profiled steps' device time goes: flash_attention's forward,
+    # the cuBLAS matmuls (kernel names holding "gemm"), and the rest
+    flash = sum(device_ms_by_name(torch, prof, "flash").values())
+    gemm = sum(device_ms_by_name(torch, prof, "gemm").values())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = walls[1:]
+    prof_wall = sum(walls[profiled_from:]) * 1e3
+    print(f"train qwen2-1.5b: {cfg.n_layers} layers, B 1 x S {TRAIN_SEQ}, "
+          f"ce_chunk {TRAIN_CE_CHUNK}, AdamW; state made in {made:.1f} s; "
+          f"losses {' '.join(f'{x:.4f}' for x in losses)}; step walls s "
+          f"{' '.join(f'{x:.4f}' for x in walls)}; steps 1-{TRAIN_STEPS - 1}:"
+          f" {len(steady) / sum(steady):.4f} steps/s, "
+          f"{len(steady) * TRAIN_SEQ / sum(steady):.1f} tokens/s; last "
+          f"{TRAIN_PROFILED} steps profiled: device busy {busy_ms:.1f} ms of "
+          f"{prof_wall:.1f} ms wall, idle share {1 - busy_ms / prof_wall:.4f}"
+          f" (flash_attention {flash:.1f} ms, cuBLAS gemm {gemm:.1f} ms, "
+          f"the rest {busy_ms - flash - gemm:.1f} ms); peak memory "
+          f"{peak:.2f} GiB; launches a step "
+          f"{json.dumps(launches[-1])}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise CheckFailed(f"qwen2-1.5b training: a loss is not finite: "
+                          f"{losses}")
+    if not losses[-1] < losses[0]:
+        raise CheckFailed(f"qwen2-1.5b training: the last loss "
+                          f"{losses[-1]} is not below step 0's {losses[0]}")
+    bad = [i for i, n in enumerate(launches)
+           if n["flash_attention"] != cfg.n_layers]
+    if bad:
+        raise CheckFailed(f"qwen2-1.5b training: flash_attention launched "
+                          f"{[launches[i]['flash_attention'] for i in bad]} "
+                          f"times at steps {bad}, not {cfg.n_layers}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def _block_errs(np, x, y, block=GAE_BLOCK):
+    """The l2 error of every ``block``-long piece of the flat leaves."""
+    a = x.detach().float().reshape(-1).cpu().numpy()
+    b = y.detach().float().reshape(-1).cpu().numpy()
+    d = np.pad(a - b, (0, -a.size % block)).reshape(-1, block)
+    return np.linalg.norm(d, axis=1)
+
+
+def train_mamba_in_process(torch, dev, counters) -> int:
+    """On seeded full-width mamba2-370m params: the gae mode's gradients
+    within GRAD_TAU in every block (ssd_scan once per layer, quantize and
+    gae_project once per leaf), and ``save_compressed``/``restore_compressed``
+    at CKPT_TAU with every block within it.  Returns the number of leaves."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+    from repro_torch.models import registry
+    from repro_torch.runtime import checkpoint, grad_compress
+    from repro_torch.train import loop, optim
+
+    cfg, run = get_config("mamba2-370m"), RunConfig()
+    params = registry.init_params(cfg, run, torch.Generator(dev).manual_seed(0),
+                                  dev)
+    n_leaves = len(optim.tree_leaves(params))
+    batch = SyntheticCorpus(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=LAUNCH_SEQ, global_batch=1)).batch_at(0)
+    for c in counters.values():
+        c.reset()
+    _, grads = loop.value_and_grad(cfg, run)(params, batch)
+    n_ssd = counters["ssd_scan"].value
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    bounded, stats = grad_compress.gae_compress_grads(grads, tau=GRAD_TAU)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {name: c.value for name, c in counters.items()}
+    worst = max(float(_block_errs(np, g, b).max())
+                for g, b in zip(optim.tree_leaves(grads),
+                                optim.tree_leaves(bounded)))
+    print(f"train mamba2-370m gae gradients: {n_leaves} leaves, keep_frac "
+          f"{float(stats['keep_frac']):.6f}, blocks kept exact "
+          f"{int(stats['exact_blocks'])}, largest block l2 error "
+          f"{worst:.6e} (tau {GRAD_TAU}), {wall:.3f} s; ssd_scan launched "
+          f"{n_ssd} in the backward's forward; launches of the compression "
+          f"{json.dumps(launched)}", flush=True)
+    if n_ssd != cfg.n_layers:
+        raise CheckFailed(f"mamba2-370m: ssd_scan launched {n_ssd} times in "
+                          f"one forward, not {cfg.n_layers}")
+    if not worst <= GRAD_TAU * (1 + 1e-4):
+        raise CheckFailed(f"mamba2-370m gae gradients: a block is "
+                          f"{worst} from the gradient, more than {GRAD_TAU}")
+    if not launched["quantize"] == launched["gae_project"] == n_leaves:
+        raise CheckFailed(f"mamba2-370m gae gradients: quantize and "
+                          f"gae_project launched {launched}, not once per "
+                          f"leaf ({n_leaves})")
+    del grads, bounded
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mamba2-370m.gae.npz")
+        t0 = time.perf_counter()
+        size = checkpoint.save_compressed(path, params, tau=CKPT_TAU,
+                                          device=dev)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = checkpoint.restore_compressed(path, device=dev)
+        t_restore = time.perf_counter() - t0
+        on_disk = os.path.getsize(path)
+    errs = [float(_block_errs(np, a, b).max()) for a, b in
+            zip(optim.tree_leaves(params), optim.tree_leaves(back))]
+    print(f"train mamba2-370m compressed checkpoint of the seeded params "
+          f"(tau {CKPT_TAU}, bin 1e-4, blocks of {GAE_BLOCK}): raw "
+          f"{size['raw_bytes']} B, compressed {size['compressed_bytes']} B, "
+          f"ratio {size['ratio']:.4f}, file {on_disk} B; save {t_save:.2f} s,"
+          f" restore {t_restore:.2f} s; largest block l2 error "
+          f"{max(errs):.6f}", flush=True)
+    if not max(errs) <= CKPT_TAU * (1 + 1e-5):
+        raise CheckFailed(f"mamba2-370m compressed checkpoint: a block is "
+                          f"{max(errs)} from the saved params, more than "
+                          f"{CKPT_TAU}")
+    del params, back
+    torch.cuda.empty_cache()
+    return n_leaves
+
+
+def _train_cli_group(runs, env, cwd) -> list:
+    """Start the launcher ``runs`` (name, args, lines) together, wait, print
+    their output; returns each run's (exit code, output, launches)."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", LAUNCHER] + args,
+                              env=env, cwd=cwd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for _, args, _ in runs]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=900)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    results = []
+    for (name, args, lines), proc, out in zip(runs, procs, outs):
+        print(f"train cli {name}: python -m repro_torch.launch.train "
+              f"{' '.join(args)}: exit {proc.returncode} ({len(runs)} at "
+              f"once, {wall:.1f} s); its output:", flush=True)
+        print("\n".join("  | " + line for line in out.splitlines()),
+              flush=True)
+        found = [json.loads(line[len("launches "):])
+                 for line in out.splitlines() if line.startswith("launches ")]
+        missing = [line for line in lines if line not in out]
+        if proc.returncode != 0 or missing or not found:
+            raise CheckFailed(f"train cli {name} exited {proc.returncode}, "
+                              f"missing {missing}")
+        results.append(found[0])
+    return results
+
+
+def train_launcher(n_leaves: int) -> dict:
+    """mamba2-370m at full width through ``python -m
+    repro_torch.launch.train``: 2 steps with a checkpoint every 2, then
+    ``--resume`` for 2 more (two at a time with one step each of
+    ``--grad-compression pca_ef`` and ``gae``).  Gates: exit 0 and the
+    lines, ssd_scan once per layer a step, and the gae run's quantize and
+    gae_project once per leaf.  Returns the gae run's launches."""
+    from repro_torch.configs import get_config
+
+    layers = get_config("mamba2-370m").n_layers
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    common = ["--arch", "mamba2-370m", "--batch", "1", "--seq",
+              str(LAUNCH_SEQ), "--save-every", "2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        d = {k: os.path.join(tmp, k) for k in ("run", "pca_ef", "gae")}
+        first, pca = _train_cli_group(
+            [("checkpointed", common + ["--steps", "2", "--ckpt", d["run"]],
+              ("done: steps 0->2",)),
+             ("pca_ef", common + ["--steps", "1", "--grad-compression",
+                                  "pca_ef", "--ckpt", d["pca_ef"]],
+              ("done: steps 0->1",))], env, tmp)
+        again, gae = _train_cli_group(
+            [("resumed", common + ["--steps", "2", "--resume", "--ckpt",
+                                   d["run"]],
+              ("resumed at step 2", "done: steps 2->4")),
+             ("gae", common + ["--steps", "1", "--grad-compression", "gae",
+                               "--ckpt", d["gae"]],
+              ("done: steps 0->1",))], env, tmp)
+    for name, got, steps in (("checkpointed", first, 2), ("pca_ef", pca, 1),
+                             ("resumed", again, 2), ("gae", gae, 1)):
+        if got["ssd_scan"] != layers * steps:
+            raise CheckFailed(f"train cli {name}: ssd_scan launched "
+                              f"{got['ssd_scan']} times in {steps} steps, not "
+                              f"{layers} a step")
+    if not gae["quantize"] == gae["gae_project"] == n_leaves:
+        raise CheckFailed(f"train cli gae: quantize and gae_project launched "
+                          f"{gae}, not once per leaf ({n_leaves})")
+    return gae
+
+
+def train_chaos(torch, dev) -> None:
+    """A reduced qwen2-1.5b run of the ``ResilientRunner`` on the card with
+    failures injected (``chaos_wrap``) against the same run without them:
+    both end at the last step, the chaos run restored once per failure, and
+    the final states agree (bit for bit, or within 1 % of the summed
+    learning rate; which of the two is printed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+    from repro_torch.models import registry
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.runtime.failures import ResilientRunner, chaos_wrap
+    from repro_torch.train import loop, optim
+
+    cfg = registry.reduced_config(get_config("qwen2-1.5b"))
+    run = RunConfig(ce_chunk=16)
+    sched = optim.warmup_cosine_schedule(TRAIN_LR, TRAIN_WARMUP, CHAOS_STEPS)
+    opt = optim.adamw(sched, weight_decay=0.01, max_grad_norm=1.0)
+    corpus = SyntheticCorpus(TokenPipelineConfig(vocab=cfg.vocab, seq_len=64,
+                                                 global_batch=2))
+    finals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fails in (("clean", set()), ("chaos", CHAOS_FAILS)):
+            state = loop.init_train_state(torch.Generator().manual_seed(0),
+                                          cfg, run, opt, dev)
+            events = []
+            runner = ResilientRunner(
+                chaos_wrap(loop.make_train_step(cfg, run, opt), fails),
+                CheckpointManager(os.path.join(tmp, name), async_save=False,
+                                  device=dev),
+                lambda s: (corpus.batch_at(i) for i in range(s, 10 ** 9)),
+                save_every=2, on_event=lambda k, i: events.append(k))
+            state, end = runner.run(state, 0, CHAOS_STEPS)
+            if end != CHAOS_STEPS or runner.stats.restores != len(fails):
+                raise CheckFailed(f"train chaos ({name}): ended at {end} "
+                                  f"with {runner.stats.restores} restores")
+            finals[name] = (state, events)
+    a, b = (optim.tree_leaves(list(finals[k][0])) for k in ("clean", "chaos"))
+    exact = all(torch.equal(x, y) for x, y in zip(a, b))
+    diff = max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(a, b))
+    bound = 0.01 * sum(float(sched(i)) for i in range(1, CHAOS_STEPS + 1))
+    print(f"train chaos (reduced qwen2-1.5b on the card, {CHAOS_STEPS} "
+          f"steps, failures at calls {sorted(CHAOS_FAILS)}): events "
+          f"{finals['chaos'][1]}; final state against the uninterrupted "
+          f"run: bit for bit {exact}, largest difference {diff:.3e} (bound "
+          f"{bound:.3e})", flush=True)
+    if not diff <= bound:
+        raise CheckFailed(f"train chaos: the restored run ends {diff} from "
+                          f"the uninterrupted one, more than {bound}")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -1514,6 +2021,7 @@ def main() -> int:
         del comp, hb
         run_clis()
         launches.update(run_lm_path(torch, dev, counters))
+        launches.update(run_train_path(torch, dev, counters, rows))
     except (CheckFailed, AssertionError) as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -107,9 +107,12 @@ class RunConfig:
     grad_comp_tau: float = 0.0
 
     def __post_init__(self):
-        """The port reads ``tp`` and ``compute_dtype`` and accepts either
-        ``use_flash_kernel``; every other field must keep its default, so a
-        config carried across fails here instead of running something else."""
+        """The port reads ``tp``, ``compute_dtype``, ``ce_chunk``,
+        ``gradient_compression``, ``grad_comp_rank`` and ``grad_comp_tau``,
+        and accepts either ``use_flash_kernel`` and either ``scan_layers``
+        (both compute the same function); every other field must keep its
+        default, so a config carried across fails here instead of running
+        something else."""
         for f in dataclasses.fields(self):
             if f.name in _HONOURED or getattr(self, f.name) == f.default:
                 continue
@@ -118,7 +121,9 @@ class RunConfig:
                 f"honours only the default {f.default!r} (ROADMAP.md)")
 
 
-_HONOURED = ("tp", "compute_dtype", "use_flash_kernel")
+_HONOURED = ("tp", "compute_dtype", "use_flash_kernel", "scan_layers",
+             "ce_chunk", "gradient_compression", "grad_comp_rank",
+             "grad_comp_tau")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -68,12 +68,23 @@ def _code_lengths(freqs: np.ndarray) -> np.ndarray:
 
 
 def build_huffman(values: np.ndarray) -> HuffmanBook:
-    """Canonical Huffman book over observed symbols, code length capped at 16."""
+    """Canonical Huffman book over observed symbols, code length capped at 16.
+
+    The cap flattens the frequencies (``ceil(f ** 0.9)``) until the lengths
+    fit.  That map stops at frequencies up to 6 (``ceil(6 ** 0.9) == 6``),
+    so with tens of thousands of symbols it can stop above the cap, where
+    the JAX package's loop never ends (ROADMAP.md §3, divergence 8); here
+    the frequencies then go flat, whose lengths are ceil(log2(symbols)) at
+    most.  Every book the JAX package finishes is built the same way."""
     syms, freqs = np.unique(np.asarray(values).ravel(), return_counts=True)
+    if syms.size > 1 << MAX_CODE_LEN:
+        raise ValueError(f"{syms.size} distinct symbols: no prefix code of "
+                         f"at most {MAX_CODE_LEN} bits holds them")
     f = freqs.astype(np.float64)
     lengths = _code_lengths(f)
     while lengths.max() > MAX_CODE_LEN:
-        f = np.ceil(np.power(f, 0.9))            # flatten distribution, retry
+        flat = np.ceil(np.power(f, 0.9))         # flatten distribution, retry
+        f = flat if not np.array_equal(flat, f) else np.ones_like(f)
         lengths = _code_lengths(f)
     # canonical ordering: (length, symbol)
     order = np.lexsort((syms, lengths))

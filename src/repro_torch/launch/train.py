@@ -1,0 +1,118 @@
+"""LM training driver, on the card by default: deterministic data pipeline ->
+train step -> checkpoint/restart -> failure-resilient loop.
+
+  python -m repro_torch.launch.train --arch qwen2-1.5b --reduced --steps 20 \\
+      --device cpu
+  python -m repro_torch.launch.train --arch mamba2-370m --batch 1 --seq 4096 \\
+      --steps 4 --grad-compression pca_ef --ckpt /tmp/ck --resume
+
+The flags and printed lines are the JAX package's (``resumed at step N``,
+``[event] {...}``, ``done: steps a->b  loss=...  ... tok/s  restores=...``),
+plus ``--device``.  SIGTERM and SIGINT checkpoint at the next step boundary
+and stop.  ``--tp`` above 1 (tensor parallelism) is not ported and is refused
+at parse time (exit 2).  ``--resume`` reads a step directory written by this
+driver or by the JAX package's (``runtime.checkpoint``).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import tempfile
+import time
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import RunConfig
+from repro_torch.core.exec import resolve_device
+from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+from repro_torch.models.registry import reduced_config
+from repro_torch.runtime.checkpoint import CheckpointManager
+from repro_torch.runtime.failures import ResilientRunner
+from repro_torch.train import optim
+from repro_torch.train.loop import init_train_state, make_train_step
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--grad-compression", default="none",
+                    choices=("none", "pca_ef", "gae"))
+    ap.add_argument("--ckpt", default="")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--save-every", type=int, default=50)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+    if args.tp != 1:
+        ap.error(f"--tp {args.tp}: tensor parallelism is not ported "
+                 f"(one device, ROADMAP.md)")
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_config(cfg)
+    run = RunConfig(tp=args.tp, gradient_compression=args.grad_compression)
+    device = resolve_device(args.device)
+
+    opt = optim.adamw(optim.warmup_cosine_schedule(args.lr, 20, args.steps),
+                      weight_decay=0.01, max_grad_norm=1.0)
+    state = init_train_state(torch.Generator(device).manual_seed(args.seed),
+                             cfg, run, opt, device)
+    step_fn = make_train_step(cfg, run, opt, microbatches=args.microbatches)
+    corpus = SyntheticCorpus(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
+        seed=args.seed))
+
+    ckpt = CheckpointManager(
+        args.ckpt or os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"),
+        retention=3, device=device)
+    start = 0
+    if args.resume and ckpt.latest_step() is not None:
+        start, state = ckpt.restore()
+        print(f"resumed at step {start}")
+
+    runner = ResilientRunner(
+        step_fn, ckpt, lambda s: iter(_gen(corpus, s)),
+        save_every=args.save_every,
+        on_event=lambda kind, info: print(f"[{kind}] {info}"))
+
+    # SIGTERM (scheduler preemption) / SIGINT (ctrl-C) -> checkpoint at the
+    # next step boundary and exit cleanly instead of dying mid-step.
+    def _on_signal(signum, frame):
+        print(f"[signal] {signal.Signals(signum).name}: preempting at "
+              "next step boundary")
+        runner.request_preemption()
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, _on_signal)
+
+    t0 = time.time()
+    state, end = runner.run(state, start, args.steps)
+    dt = time.time() - t0
+    ckpt.save(end, state, blocking=True)
+    tok_rate = (end - start) * args.batch * args.seq / max(dt, 1e-9)
+    print(f"done: steps {start}->{end}  loss={runner.stats.last_loss:.4f}  "
+          f"{tok_rate:,.0f} tok/s  restores={runner.stats.restores}")
+
+
+def _gen(corpus, start):
+    s = start
+    while True:
+        yield corpus.batch_at(s)
+        s += 1
+
+
+if __name__ == "__main__":
+    main()

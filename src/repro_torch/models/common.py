@@ -129,3 +129,83 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def _nll(logits32: Tensor, labels: Tensor, vocab: int) -> tuple[Tensor, Tensor]:
+    """(summed NLL, count) over the positions whose label is a real id;
+    labels outside [0, vocab) (padding ids) are masked, as in the JAX
+    package, and clamped only so that the gather stays in bounds."""
+    logz = torch.logsumexp(logits32, dim=-1)
+    idx = labels.long().clamp(0, logits32.shape[-1] - 1)
+    gold = torch.gather(logits32, -1, idx[..., None])[..., 0]
+    mask = (labels >= 0) & (labels < vocab)
+    nll = torch.where(mask, logz - gold, torch.zeros_like(logz))
+    return nll.sum(), mask.sum()
+
+
+def cross_entropy_loss(logits: Tensor, labels: Tensor, vocab: int) -> Tensor:
+    """Mean CE over all positions; labels >= vocab (padding ids) are masked."""
+    nll, count = _nll(logits.to(torch.float32), labels, vocab)
+    return nll / torch.clamp(count, min=1)
+
+
+def chunked_ce_loss(x: Tensor, unembed_w: Tensor, labels: Tensor, vocab: int,
+                    chunk: int, logit_mask_from: int = 0) -> Tensor:
+    """Fused LM-head + CE, sequence-chunked.
+
+    The head matmul, logsumexp and gold gather run per sequence chunk under
+    ``torch.utils.checkpoint``, so the live logits are (B, chunk, V) and the
+    full (B, S, V) tensor never exists: the backward recomputes each chunk's
+    logits.  The same math as ``cross_entropy_loss`` over the full logits
+    (exact, not an approximation).
+
+    x: (B, S, D) final hidden states;  unembed_w: (D, V_padded);
+    ``logit_mask_from``: columns >= this are padding (masked to -1e30).
+    """
+    from torch.utils.checkpoint import checkpoint
+
+    s = x.shape[1]
+    if s % chunk:
+        raise ValueError(f"chunked_ce_loss: sequence {s} is not a multiple "
+                         f"of the chunk {chunk}")
+    w = unembed_w.to(x.dtype)
+    vpad = w.shape[1]
+    col_mask = None
+    if logit_mask_from and logit_mask_from < vpad:
+        col_mask = torch.where(torch.arange(vpad, device=x.device)
+                               < logit_mask_from, 0.0, -1e30)
+
+    def one(xi: Tensor, w: Tensor, li: Tensor):
+        logits = (xi @ w).to(torch.float32)                # (B, c, Vpad)
+        if col_mask is not None:
+            logits = logits + col_mask
+        return _nll(logits, li, vocab)
+
+    nll_total = count = 0
+    for i in range(0, s, chunk):
+        nll, cnt = checkpoint(one, x[:, i:i + chunk], w,
+                              labels[:, i:i + chunk], use_reentrant=False)
+        nll_total = nll_total + nll
+        count = count + cnt
+    return nll_total / torch.clamp(count, min=1)
+
+
+def train_loss(forward: Callable, params: dict, cfg, run, batch: dict,
+               head_w: Tensor) -> Tensor:
+    """Mean next-token CE of ``batch`` ({"tokens", "labels"}, (B, S) ints)
+    through the model's ``forward``; with ``run.ce_chunk`` the LM head
+    (``head_w``, (D, V_padded)) and the CE run chunked on the final hidden
+    states."""
+    if run.ce_chunk:
+        x = forward(params, cfg, run, batch["tokens"], return_hidden=True)
+        pv = cfg.padded_vocab(run.tp)
+        return chunked_ce_loss(x, head_w, batch["labels"], cfg.vocab,
+                               run.ce_chunk,
+                               logit_mask_from=cfg.vocab if pv != cfg.vocab
+                               else 0)
+    logits = forward(params, cfg, run, batch["tokens"])
+    return cross_entropy_loss(logits, batch["labels"], cfg.vocab)

@@ -2,7 +2,8 @@
 carried across from the JAX package.
 
 The port has the dense (qwen) and SSM (mamba2) families; the others wait for
-later slices (ROADMAP.md).
+later slices (ROADMAP.md).  ``params_from_jax`` and ``train_state_from_jax``
+carry the JAX package's params and training state across as numpy.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from repro_torch.core.exec import resolve_device
 class ModelApi:
     init_params: Callable        # (cfg, run, generator, device) -> params
     forward: Callable            # (params, cfg, run, tokens) -> logits
+    train_loss: Callable         # (params, cfg, run, batch) -> scalar
     init_decode_state: Callable  # (params, cfg, run, batch, max_len) -> state
     decode_step: Callable        # (params, cfg, run, token, state) -> (logits, state)
 
@@ -33,6 +35,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         raise NotImplementedError(f"{cfg.arch}: the {cfg.family} family is "
                                   f"not ported yet (ROADMAP.md)")
     return ModelApi(init_params=m.init_params, forward=m.forward,
+                    train_loss=m.train_loss,
                     init_decode_state=m.init_decode_state,
                     decode_step=m.decode_step)
 
@@ -49,7 +52,7 @@ def init_params(cfg: ModelConfig, run: RunConfig, generator: torch.Generator,
 def params_from_jax(tree: Any, device=None) -> dict:
     """The JAX package's param tree (numpy leaves, as ``jax.device_get``
     returns them, stacked-layer axis kept) as tensors on ``device`` with the
-    same paths."""
+    same paths; a bare array comes back as one tensor."""
     device = resolve_device(device)
 
     def convert(node):
@@ -57,6 +60,33 @@ def params_from_jax(tree: Any, device=None) -> dict:
             return {k: convert(v) for k, v in node.items()}
         return torch.from_numpy(np.array(node)).to(device)
     return convert(tree)
+
+
+def train_state_from_jax(state: Any, device=None):
+    """The JAX package's ``TrainState`` (numpy leaves, as ``jax.device_get``
+    returns it) as the port's ``train.loop.TrainState`` on ``device``: the
+    params, Adam's ``step``/``mu``/``nu``, the ``pca_ef`` basis and error
+    buffers, and the step.  Read by field name, so nothing of the JAX
+    package is imported."""
+    from repro_torch.runtime.grad_compress import GradCompressionState
+    from repro_torch.train.loop import TrainState
+    from repro_torch.train.optim import AdamState
+
+    device = resolve_device(device)
+
+    def conv(tree):
+        return params_from_jax(tree, device)
+
+    gc = None
+    if state.gc is not None:
+        gc = GradCompressionState(basis=conv(state.gc.basis),
+                                  error=conv(state.gc.error),
+                                  step=conv(state.gc.step))
+    return TrainState(params=conv(state.params),
+                      opt=AdamState(step=conv(state.opt.step),
+                                    mu=conv(state.opt.mu),
+                                    nu=conv(state.opt.nu)),
+                      gc=gc, step=conv(state.step))
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.models import common
 from repro_torch.models.common import (apply_stack, compute_dtype, embed,
                                        lecun_init, randn, rmsnorm,
                                        rmsnorm_init, uniform)
@@ -140,13 +141,23 @@ def _logits(params: dict, cfg: ModelConfig, run: RunConfig, x: Tensor) -> Tensor
 
 
 def forward(params: dict, cfg: ModelConfig, run: RunConfig,
-            tokens: Tensor) -> Tensor:
-    """tokens (B, S) -> logits (B, S, padded_vocab)."""
+            tokens: Tensor, return_hidden: bool = False) -> Tensor:
+    """tokens (B, S) -> logits (B, S, padded_vocab), or with
+    ``return_hidden`` the final normed hidden states (B, S, d_model)."""
     x = embed(params["embed"], tokens).to(compute_dtype(run))
     x = apply_stack(lambda h, lp: _block_forward(lp, cfg, h), x,
                     params["layers"])
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if return_hidden:
+        return x
     return _logits(params, cfg, run, x)
+
+
+def train_loss(params: dict, cfg: ModelConfig, run: RunConfig,
+               batch: dict) -> Tensor:
+    """Mean next-token CE of ``batch``; chunked with ``run.ce_chunk``."""
+    return common.train_loss(forward, params, cfg, run, batch,
+                             params["unembed"]["w"])
 
 
 # ---------------------------------------------------------------------------

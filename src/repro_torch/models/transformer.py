@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import common
 from repro_torch.models.common import (apply_stack, compute_dtype, embed,
                                        lecun_init, randn, rmsnorm,
                                        rmsnorm_init, swiglu, swiglu_init,
@@ -73,8 +74,9 @@ def init_params(cfg: ModelConfig, run: RunConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def forward(params: dict, cfg: ModelConfig, run: RunConfig,
-            tokens: Tensor) -> Tensor:
-    """tokens (B, S) -> logits (B, S, padded_vocab)."""
+            tokens: Tensor, return_hidden: bool = False) -> Tensor:
+    """tokens (B, S) -> logits (B, S, padded_vocab), or with
+    ``return_hidden`` the final normed hidden states (B, S, d_model)."""
     _check_family(cfg)
     b, s = tokens.shape
     x = embed(params["embed"], tokens).to(compute_dtype(run))
@@ -83,6 +85,8 @@ def forward(params: dict, cfg: ModelConfig, run: RunConfig,
     x = apply_stack(lambda h, lp: _self_layer(lp, cfg, h, positions), x,
                     params["layers"])
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if return_hidden:
+        return x
     return _lm_head(params, cfg, run, x)
 
 
@@ -98,6 +102,14 @@ def _lm_head(params: dict, cfg: ModelConfig, run: RunConfig, x: Tensor) -> Tenso
                            0.0, -1e30)
         logits = logits + mask.to(logits.dtype)
     return logits
+
+
+def train_loss(params: dict, cfg: ModelConfig, run: RunConfig,
+               batch: dict) -> Tensor:
+    """Mean next-token CE of ``batch``; chunked with ``run.ce_chunk``."""
+    w = (params["embed"]["w"].T if cfg.tie_embeddings
+         else params["unembed"]["w"])
+    return common.train_loss(forward, params, cfg, run, batch, w)
 
 
 # ---------------------------------------------------------------------------

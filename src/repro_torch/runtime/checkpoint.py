@@ -1,0 +1,391 @@
+"""Checkpointing, in PyTorch: atomic, hashed, retained, async; and
+error-bounded compressed checkpoints.
+
+Layout on disk (one directory per step), the JAX package's ``npz-v1``::
+
+    <dir>/step_00000042/
+        manifest.json      # per-tensor path, shape, dtype, sha256, key
+        arrays.npz         # logical arrays, as numpy
+    <dir>/step_00000042.tmp.<pid>   # in-flight save (renamed on completion)
+
+* **Atomicity** — writes go to a tmp directory, fsync'd, then ``os.replace``d
+  into place; a crash mid-save leaves only a tmp dir that restore ignores.
+* **Integrity** — every tensor is sha256-hashed in the manifest; restore
+  re-hashes and falls back to the previous complete step on any mismatch.
+* **Retention** — keep the newest ``retention`` steps.
+* **Async** — ``save`` fetches the tensors to the host, then can hand the
+  write to a background thread; ``wait()`` joins it.
+
+A tree's paths are the JAX package's: dict keys (sorted), ``.field`` for a
+``NamedTuple`` field and the index for a list item, joined by ``/``; a
+``TrainState`` reads ``.params/embed/w``, ``.opt/.mu/...``, ``.step``.
+``restore`` rebuilds the tree from the manifest's paths alone, with the
+port's own ``NamedTuple`` classes (``TrainState``, ``AdamState``,
+``SgdState``, ``GradCompressionState``; a field with no leaves, such as
+``gc=None``, comes back as ``None``).  It never opens the JAX package's
+``treedef.pkl``, so a step directory that the JAX ``CheckpointManager``
+wrote restores here; the port writes no ``treedef.pkl``, so its steps do not
+restore in the JAX package.  Cross-reading goes one way, JAX to port.
+
+``save_compressed`` writes the port's own container (one ``.npz`` file with
+a JSON manifest; nothing pickled): every float tensor of at least
+``min_size`` elements is encoded with the paper's PCA-GAE machinery such
+that every ``block``-long piece is within ``tau`` in l2 on restore.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import entropy, gae
+from repro_torch.core.exec import resolve_device
+from repro_torch.runtime.grad_compress import GradCompressionState
+from repro_torch.train.loop import TrainState
+from repro_torch.train.optim import AdamState, SgdState
+
+PyTree = Any
+Tensor = torch.Tensor
+
+_SEP = "/"
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    """A host copy of ``leaf`` that shares no memory with it (``.cpu()`` of
+    a CPU tensor would be the tensor itself)."""
+    if isinstance(leaf, Tensor):
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.array(leaf)
+
+
+def _flatten_with_paths(tree: PyTree) -> list[tuple[str, np.ndarray]]:
+    """(path, host array) for every leaf, in ``jax.tree.flatten`` order."""
+    out = []
+
+    def walk(node, keys):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], keys + [str(k)])
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            for f, v in zip(node._fields, node):
+                walk(v, keys + ["." + f])
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, keys + [str(i)])
+        else:
+            out.append((_SEP.join(keys), _to_numpy(node)))
+
+    walk(tree, [])
+    return out
+
+
+def _namedtuple(fields: dict):
+    """The port's ``NamedTuple`` with the fewest fields that holds all of
+    ``fields``; its other fields are ``None``."""
+    fits = [c for c in (SgdState, AdamState, GradCompressionState, TrainState)
+            if set(fields) <= set(c._fields)]
+    if not fits:
+        raise ValueError(f"no NamedTuple of the port has the fields "
+                         f"{sorted(fields)}")
+    cls = min(fits, key=lambda c: len(c._fields))
+    return cls(**{f: fields.get(f) for f in cls._fields})
+
+
+def _unflatten_paths(leaves: list[tuple[str, Any]]) -> PyTree:
+    """The tree whose ``_flatten_with_paths`` gives ``leaves``."""
+    if len(leaves) == 1 and leaves[0][0] == "":
+        return leaves[0][1]                        # the tree was one leaf
+    root: dict = {}
+    for path, leaf in leaves:
+        keys = path.split(_SEP)
+        node = root
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+
+    def build(node):
+        if not isinstance(node, dict):
+            return node
+        kids = {k: build(v) for k, v in node.items()}
+        if kids and all(k.startswith(".") for k in kids):
+            return _namedtuple({k[1:]: v for k, v in kids.items()})
+        if kids and sorted(kids) == sorted(map(str, range(len(kids)))):
+            return [kids[str(i)] for i in range(len(kids))]
+        return kids
+
+    return build(root)
+
+
+def _sha(arr: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def _fsync_write(path: str, write) -> None:
+    with open(path, "wb") as f:
+        write(f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+class CheckpointManager:
+    """Steps of a tree under ``directory``; ``device`` is where ``restore``
+    puts the tensors unless it is given one (``None``: the card)."""
+
+    def __init__(self, directory: str, retention: int = 3,
+                 async_save: bool = True, device=None):
+        self.dir = directory
+        self.retention = retention
+        self.async_save = async_save
+        self.device = device
+        self._thread: Optional[threading.Thread] = None
+        self._save_error: Optional[BaseException] = None
+        os.makedirs(directory, exist_ok=True)
+
+    # -- paths ---------------------------------------------------------------
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.dir, f"step_{step:08d}")
+
+    def all_steps(self) -> list[int]:
+        steps = []
+        for name in os.listdir(self.dir):
+            if name.startswith("step_") and ".tmp" not in name:
+                try:
+                    steps.append(int(name[len("step_"):]))
+                except ValueError:
+                    continue
+        return sorted(steps)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    # -- save -----------------------------------------------------------------
+    def save(self, step: int, tree: PyTree, *, blocking: Optional[bool] = None,
+             extra: Optional[dict] = None) -> None:
+        """Checkpoint ``tree`` at ``step``.  The tensors are fetched to the
+        host before any thread handoff, so the caller may change them
+        afterwards."""
+        self.wait()
+        if self._save_error is not None:
+            err, self._save_error = self._save_error, None
+            raise RuntimeError("previous async checkpoint save failed") from err
+        leaves = _flatten_with_paths(tree)
+        blocking = (not self.async_save) if blocking is None else blocking
+        if blocking:
+            self._write(step, leaves, extra)
+        else:
+            self._thread = threading.Thread(
+                target=self._write_guarded, args=(step, leaves, extra),
+                daemon=True)
+            self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _write_guarded(self, *args) -> None:
+        try:
+            self._write(*args)
+        except BaseException as e:          # surfaced on the next save()
+            self._save_error = e
+
+    def _write(self, step: int, leaves, extra: Optional[dict]) -> None:
+        final = self._step_dir(step)
+        tmp = f"{final}.tmp.{os.getpid()}"
+        os.makedirs(tmp, exist_ok=True)
+        manifest = {"step": step, "format": "npz-v1",
+                    "extra": extra or {}, "tensors": [
+                        {"path": path, "key": f"t{i}",
+                         "shape": list(arr.shape), "dtype": str(arr.dtype),
+                         "sha256": _sha(arr)}
+                        for i, (path, arr) in enumerate(leaves)]}
+        _fsync_write(os.path.join(tmp, "arrays.npz"), lambda f: np.savez(
+            f, **{f"t{i}": arr for i, (_, arr) in enumerate(leaves)}))
+        _fsync_write(os.path.join(tmp, "manifest.json"), lambda f: f.write(
+            json.dumps(manifest, indent=1).encode()))
+        if os.path.isdir(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        self._enforce_retention()
+
+    def _enforce_retention(self) -> None:
+        steps = self.all_steps()
+        for s in steps[:-self.retention] if self.retention else []:
+            shutil.rmtree(self._step_dir(s), ignore_errors=True)
+
+    # -- restore ----------------------------------------------------------------
+    def restore(self, step: Optional[int] = None, *, device=None
+                ) -> tuple[int, PyTree]:
+        """Restore the given (or newest valid) step onto ``device`` (default:
+        the manager's).  Corrupt or torn steps are skipped with fallback."""
+        device = resolve_device(device if device is not None else self.device)
+        candidates = ([step] if step is not None
+                      else list(reversed(self.all_steps())))
+        last_err: Optional[Exception] = None
+        for s in candidates:
+            try:
+                leaves = self._read(s)
+            except Exception as e:          # torn/corrupt -> try previous
+                last_err = e
+                continue
+            return s, _unflatten_paths(
+                [(p, torch.from_numpy(a).to(device)) for p, a in leaves])
+        raise FileNotFoundError(
+            f"no restorable checkpoint in {self.dir!r}") from last_err
+
+    def _read(self, step: int) -> list[tuple[str, np.ndarray]]:
+        d = self._step_dir(step)
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        leaves = []
+        with np.load(os.path.join(d, "arrays.npz")) as data:
+            for t in manifest["tensors"]:
+                arr = data[t["key"]]
+                if _sha(arr) != t["sha256"]:
+                    raise IOError(f"hash mismatch for {t['path']} at step "
+                                  f"{step}")
+                leaves.append((t["path"], arr))
+        return leaves
+
+
+# ---------------------------------------------------------------------------
+# error-bounded compressed checkpoints (the paper's technique on weights)
+# ---------------------------------------------------------------------------
+
+COMPRESSED_FORMAT = "repro-torch-gae-ckpt-v1"
+
+
+def save_compressed(path: str, tree: PyTree, *, tau: float,
+                    bin_size: float = 1e-4, block: int = 256,
+                    min_size: int = 4096, device=None) -> dict:
+    """Write an error-bounded compressed checkpoint.
+
+    Every float tensor with >= ``min_size`` elements is blocked into
+    ``block``-long vectors and encoded with the paper's PCA-GAE machinery
+    (basis from the tensor's own blocks, fit and selected on ``device``, the
+    card by default; top-M quantized coefficients per block; Huffman +
+    index-bitmask bitstream) such that every block satisfies
+    ||x - x^G||_2 <= tau on restore.  Small, non-float and incompressible
+    tensors are stored raw.  Returns size accounting {raw_bytes,
+    compressed_bytes, ratio}.
+    """
+    device = resolve_device(device)
+    manifest: dict[str, Any] = {"format": COMPRESSED_FORMAT, "tensors": []}
+    arrays: dict[str, np.ndarray] = {}
+    raw_bytes = comp_bytes = 0
+    for i, (tpath, arr) in enumerate(_flatten_with_paths(tree)):
+        raw_bytes += arr.nbytes
+        entry: dict[str, Any] = {"path": tpath, "shape": list(arr.shape),
+                                 "dtype": str(arr.dtype), "kind": "raw"}
+        key = f"t{i}"
+        coded = None
+        if arr.dtype.kind == "f" and arr.size >= min_size:
+            coded = _encode_gae(arr, tau=tau, bin_size=bin_size, block=block,
+                                device=device)
+        if coded is None:
+            arrays[f"{key}.raw"] = arr
+            comp_bytes += arr.nbytes
+        else:
+            fields, parts, cost = coded
+            entry.update(fields)
+            arrays.update({f"{key}.{k}": v for k, v in parts.items()})
+            comp_bytes += cost
+        manifest["tensors"].append(entry)
+    arrays["manifest"] = np.frombuffer(json.dumps(manifest).encode(),
+                                       np.uint8)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    _fsync_write(tmp, lambda f: np.savez(f, **arrays))
+    os.replace(tmp, path)
+    return {"raw_bytes": raw_bytes, "compressed_bytes": comp_bytes,
+            "ratio": raw_bytes / max(comp_bytes, 1)}
+
+
+def _encode_gae(arr: np.ndarray, *, tau: float, bin_size: float, block: int,
+                device) -> Optional[tuple[dict, dict, int]]:
+    """(manifest fields, arrays, coded bytes) of one float tensor in GAE
+    blocks, or ``None`` where raw storage is the answer: an incompressible
+    tensor (flat residual spectrum; the guarantee is then exactness, never
+    pay for expansion), or one with more distinct coefficients than a
+    16-bit prefix code holds."""
+    flat = arr.astype(np.float32).reshape(-1)
+    pad = -flat.size % block
+    blocks = np.pad(flat, (0, pad)).reshape(-1, block)
+    basis = gae.fit_pca_basis(torch.from_numpy(blocks).to(device)
+                              ).cpu().numpy()
+    _, codes = gae.gae_encode_blocks(blocks, np.zeros_like(blocks), basis,
+                                     tau, bin_size, device=device)
+    coeffs = (np.concatenate([c.qcoeffs[np.argsort(c.indices)]
+                              for c in codes])
+              if codes else np.zeros(0, np.int64))
+    if np.unique(coeffs).size > 1 << entropy.MAX_CODE_LEN:
+        return None
+    stream = entropy.huffman_compress(coeffs) if coeffs.size else None
+    idx_blob = entropy.encode_index_sets([np.sort(c.indices) for c in codes],
+                                         block)
+    binexp_blob = entropy.zlib_pack(
+        np.asarray([c.bin_exp for c in codes], np.uint8).tobytes())
+    cost = (basis.nbytes + (stream.nbytes() if stream else 0)
+            + len(idx_blob) + len(binexp_blob))
+    if cost >= arr.nbytes:
+        return None
+    parts = {"basis": basis, "index": np.frombuffer(idx_blob, np.uint8),
+             "binexp": np.frombuffer(binexp_blob, np.uint8)}
+    if stream is not None:
+        parts.update(payload=np.frombuffer(stream.payload, np.uint8),
+                     symbols=stream.book.symbols, lengths=stream.book.lengths)
+    return (dict(kind="gae", block=block, pad=pad, tau=tau, bin_size=bin_size,
+                 count=stream.count if stream else 0), parts, cost)
+
+
+def restore_compressed(path: str, device=None) -> PyTree:
+    """The tree ``save_compressed`` wrote, as tensors on ``device`` (the card
+    by default); every GAE block is within the ``tau`` it was saved at."""
+    device = resolve_device(device)
+    leaves = []
+    with np.load(path) as data:
+        manifest = json.loads(data["manifest"].tobytes())
+        if manifest.get("format") != COMPRESSED_FORMAT:
+            raise ValueError(f"{path}: not a {COMPRESSED_FORMAT} checkpoint")
+        for i, entry in enumerate(manifest["tensors"]):
+            key = f"t{i}"
+            shape = tuple(entry["shape"])
+            if entry["kind"] == "raw":
+                arr = data[f"{key}.raw"]
+            else:
+                block = entry["block"]
+                index_sets = entropy.decode_index_sets(
+                    data[f"{key}.index"].tobytes(), expect_dim=block)
+                binexps = np.frombuffer(entropy.zlib_unpack(
+                    data[f"{key}.binexp"].tobytes()), np.uint8)
+                coeffs = np.zeros(0, np.int64)
+                if entry["count"]:
+                    book = entropy.rebuild_book(data[f"{key}.symbols"],
+                                                data[f"{key}.lengths"])
+                    coeffs = entropy.huffman_decode(
+                        data[f"{key}.payload"].tobytes(), book,
+                        entry["count"])
+                codes, pos = [], 0
+                for idx, be in zip(index_sets, binexps):
+                    codes.append(gae.GAEBlockCode(
+                        m=idx.size, indices=idx,
+                        qcoeffs=coeffs[pos:pos + idx.size], bin_exp=int(be)))
+                    pos += idx.size
+                recon = gae.gae_decode_blocks(
+                    np.zeros((len(codes), block), np.float32),
+                    data[f"{key}.basis"], codes, entry["bin_size"])
+                flat = recon.reshape(-1)
+                if entry["pad"]:
+                    flat = flat[:-entry["pad"]]
+                arr = flat.astype(np.dtype(entry["dtype"])).reshape(shape)
+            leaves.append((entry["path"], torch.from_numpy(
+                np.ascontiguousarray(arr)).to(device)))
+    return _unflatten_paths(leaves)

@@ -16,7 +16,8 @@ leaves run in the JAX package's order.
 tree.  The step count, the learning rate and the bias corrections are
 0-dim tensors on the params' device, so an update never waits on the host;
 the per-leaf arithmetic runs as one ``torch._foreach_*`` launch per
-operation over all leaves.
+operation over a group of leaves (all of a compressor's leaves form one
+group; an LM's are split so that the temporaries stay small).
 """
 from __future__ import annotations
 
@@ -138,6 +139,26 @@ def _device(params: PyTree) -> Optional[torch.device]:
     return leaves[0].device if leaves else None
 
 
+# the leaves of one foreach pass hold at most this many bytes (a larger leaf
+# goes alone): each of Adam's ~8 temporaries is that large, not the model's
+# size, so an LM's update fits beside its params, moments and grads
+GROUP_BYTES = 1 << 28
+
+
+def _groups(leaves: list[Tensor]):
+    """``(lo, hi)`` index ranges of consecutive leaves, each range's bytes at
+    most ``GROUP_BYTES`` unless it is one leaf."""
+    lo, size = 0, 0
+    for i, x in enumerate(leaves):
+        n = x.numel() * x.element_size()
+        if i > lo and size + n > GROUP_BYTES:
+            yield lo, i
+            lo, size = i, 0
+        size += n
+    if lo < len(leaves):
+        yield lo, len(leaves)
+
+
 def adamw(lr: float | Callable[[Any], Tensor] = 1e-3,
           b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 0.0, max_grad_norm: Optional[float] = None,
@@ -163,25 +184,28 @@ def adamw(lr: float | Callable[[Any], Tensor] = 1e-3,
         bc2 = 1.0 - b2 ** step.to(torch.float32)
 
         f32 = torch.float32
-        p, mu, nu = (tree_leaves(t) for t in (params, state.mu, state.nu))
-        g = [x.to(f32) for x in tree_leaves(grads)]
-        m = torch._foreach_add(torch._foreach_mul([x.to(f32) for x in mu], b1),
-                               torch._foreach_mul(g, 1 - b1))
-        v = torch._foreach_add(torch._foreach_mul(nu, b2),
-                               torch._foreach_mul(torch._foreach_mul(g, g),
-                                                  1 - b2))
-        mhat = torch._foreach_div(m, bc1)
-        vhat = torch._foreach_div(v, bc2)
-        delta = torch._foreach_div(
-            mhat, torch._foreach_add(torch._foreach_sqrt(vhat), eps))
-        p32 = [x.to(f32) for x in p]
-        if weight_decay:
-            delta = torch._foreach_add(delta,
-                                       torch._foreach_mul(p32, weight_decay))
-        torch._foreach_copy_(p, torch._foreach_sub(
-            p32, torch._foreach_mul(delta, lr_t)))
-        torch._foreach_copy_(mu, m)
-        torch._foreach_copy_(nu, v)
+        leaves = [tree_leaves(t) for t in (params, state.mu, state.nu, grads)]
+        for lo, hi in _groups(leaves[0]):
+            p, mu, nu, g = (x[lo:hi] for x in leaves)
+            g = [x.to(f32) for x in g]
+            m = torch._foreach_add(
+                torch._foreach_mul([x.to(f32) for x in mu], b1),
+                torch._foreach_mul(g, 1 - b1))
+            v = torch._foreach_add(torch._foreach_mul(nu, b2),
+                                   torch._foreach_mul(torch._foreach_mul(g, g),
+                                                      1 - b2))
+            mhat = torch._foreach_div(m, bc1)
+            vhat = torch._foreach_div(v, bc2)
+            delta = torch._foreach_div(
+                mhat, torch._foreach_add(torch._foreach_sqrt(vhat), eps))
+            p32 = [x.to(f32) for x in p]
+            if weight_decay:
+                delta = torch._foreach_add(
+                    delta, torch._foreach_mul(p32, weight_decay))
+            torch._foreach_copy_(p, torch._foreach_sub(
+                p32, torch._foreach_mul(delta, lr_t)))
+            torch._foreach_copy_(mu, m)
+            torch._foreach_copy_(nu, v)
         return params, AdamState(step=step, mu=state.mu, nu=state.nu), stats
 
     return Optimizer(init=init, update=update)

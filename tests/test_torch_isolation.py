@@ -46,7 +46,11 @@ PORT_MODULES = ("repro_torch.core.pipeline", "repro_torch.runtime.archive_io",
                 "repro_torch.baselines.block_ae", "repro_torch.stream",
                 "repro_torch.runtime.stream_writer",
                 "repro_torch.runtime.chaosinject",
-                "repro_torch.runtime.faultinject")
+                "repro_torch.runtime.faultinject",
+                "repro_torch.train.loop", "repro_torch.data.tokens",
+                "repro_torch.runtime.grad_compress",
+                "repro_torch.runtime.checkpoint",
+                "repro_torch.runtime.failures", "repro_torch.launch.train")
 
 
 def test_importing_the_port_loads_no_jax():

@@ -113,11 +113,8 @@ def _leaves(tree):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("param_dtype", "bfloat16"), ("dp", 2), ("remat", True),
-    ("scan_layers", False), ("ce_chunk", 512), ("sp", True),
-    ("moe_dispatch_groups", 2), ("cast_params_early", True),
-    ("gradient_compression", "gae"), ("grad_comp_rank", 8),
-    ("grad_comp_tau", 0.1)])
+    ("param_dtype", "bfloat16"), ("dp", 2), ("remat", True), ("sp", True),
+    ("moe_dispatch_groups", 2), ("cast_params_early", True)])
 def test_run_config_refuses_what_the_port_does_not_honour(field, value):
     JRunConfig(**{field: value})             # the JAX package takes it
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -128,6 +125,11 @@ def test_run_config_takes_what_the_port_honours():
     run = RunConfig(tp=1, compute_dtype="bfloat16", use_flash_kernel=True)
     assert run == dataclasses.replace(RunConfig(), compute_dtype="bfloat16",
                                       use_flash_kernel=True)
+    # the trainer's fields (tests/test_torch_train.py runs them)
+    train = dict(scan_layers=False, ce_chunk=512, gradient_compression="gae",
+                 grad_comp_rank=8, grad_comp_tau=0.1)
+    JRunConfig(**train)
+    assert RunConfig(**train) == dataclasses.replace(RunConfig(), **train)
     assert ({f.name for f in dataclasses.fields(RunConfig)}
             == {f.name for f in dataclasses.fields(JRunConfig)})
 
