@@ -26,6 +26,10 @@ Phases, each reported on its own lines:
    flash_attention bf16 at most 2.0x ``scaled_dot_product_attention`` in
    turns, fp32 at most 2.0 ms and faster than it, ssd_scan at most
    0.72 ms, gae_project at most 1.10x ``torch.matmul`` in turns;
+   flash_attention also at recurrentgemma-9b's local attention (16 query
+   heads on one kv head of 256, window 2048, 4096 tokens), a ragged hd-256
+   case and a padded head size (96), in fp32 and bf16, reported in rows of
+   their own (``"path": "recurrentgemma-9b"``), not gated;
 3. gradients: through each kernel's ``torch.autograd.Function`` against
    autograd through its plain version on the card — ``wq``, ``wk``, ``wv``
    and ``wo`` of one ``self_attention`` call at the S3D stripe
@@ -70,20 +74,26 @@ Phases, each reported on its own lines:
    must not share the host with training); each must exit 0 and print
    "verify OK" (with "container written to" or "container streamed to")
    or its three "[OK]" scenarios;
-8. LM path, for qwen2-1.5b and mamba2-370m at full width with seeded
-   weights: ``forward`` over 1 x 4096 random tokens (the prefill, with its
-   kernel launched once per layer) in fp32 and then with
+8. LM path, for qwen2-1.5b, mamba2-370m and recurrentgemma-9b (10.445 B
+   params, 38 layers) at full width and depth with seeded weights:
+   ``forward`` over 1 x 4096 random tokens (the prefill, with its kernel
+   launched once per layer that runs it: every layer, or the hybrid's 12
+   local-attention layers, whose window of 2048 the prefill exceeds) in
+   fp32 and then with
    ``compute_dtype="bfloat16"``; the bf16 prefill's last 64 logits through
    the kernel are held to those through its plain version (both against
    the fp32 prefill's); ``forward``'s last logits against the
    serving engine's decode-step prefill on a 64-token prompt, the device
    time of one ``decode_step`` against its wall, and ``ServeEngine.serve``
-   on 8 requests with raw KV and with ``kv_tau`` 0.05;
+   on 8 requests with raw KV and with ``kv_tau`` 0.05 (quantize launched
+   for the dense and the hybrid model's caches), and the peak device
+   memory of each model's run;
 9. LM training: gae_project and quantize at (841728, 256), the shape a
    gae train step gives them on mamba2-370m's in_proj, against their
    plain versions and timed (rows with ``"path": "train"``); one train
-   step's loss and gradients of reduced qwen2-1.5b and mamba2-370m on the
-   card against the CPU (1e-5; 1e-5 of each leaf's largest); qwen2-1.5b at
+   step's loss and gradients of reduced qwen2-1.5b, mamba2-370m and
+   recurrentgemma-9b on the card against the CPU (1e-5; 1e-5 of each
+   leaf's largest); qwen2-1.5b at
    full width and depth trained 8 AdamW steps of B 1 x S 4096 with
    ``ce_chunk`` 512 (gates: finite losses, the last below step 0's,
    flash_attention launched 28 times a step; printed: steps/s, tokens/s,
@@ -197,6 +207,20 @@ def device_ms_by_name(torch, prof, match: str) -> dict:
             key = found.group(0) if found else e.name
             out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
     return out
+
+
+def top_device_ms(torch, prof, n: int = 6) -> list:
+    """The ``n`` device activities with the most summed ms, as (name cut
+    to 48 characters, ms, share of all device ms)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    by = {}
+    for e in prof.events():
+        if e.device_type == cuda:
+            by[e.name[:48]] = by.get(e.name[:48], 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    total = sum(by.values()) or 1.0
+    return [(k, v, v / total) for k, v in
+            sorted(by.items(), key=lambda kv: -kv[1])[:n]]
 
 
 def time_ms(torch, fn, iters: int = 30, warmup: int = 3,
@@ -491,6 +515,7 @@ def check_kernels(torch, dev) -> dict:
         raise CheckFailed(f"flash_attention float32 {shape}: {t32:.5f} ms, "
                           f"more than {FA_F32_MS_MAX} ms or not faster than "
                           f"scaled_dot_product_attention's {t32_lib:.5f} ms")
+    _flash_hybrid_rows(torch, dev, gen, row, report)
 
     # ssd_scan: the mamba2-370m prefill (B 1, S 4096, H 32, P 64, G 1, N 128,
     # chunk 256), a ragged S, G = 2.  Inputs as the JAX kernel tests make
@@ -555,6 +580,59 @@ def check_kernels(torch, dev) -> dict:
             raise CheckFailed(f"ssd_scan at mamba2-370m: {t[0]:.5f} ms, more "
                               f"than {SSD_MAMBA2_MS_MAX} ms")
     return rows
+
+
+# flash_attention at recurrentgemma-9b's local attention: 16 query heads on
+# one kv head of 256, causal, window 2048, over the prefill's 4096 tokens
+# (its own rows, "path": "recurrentgemma-9b"); then a ragged hd-256 case and
+# a head size the kernel is not built for (96, zero-padded to 128).
+# Reported, not gated.
+FA_HYBRID_CASES = ((1, 4096, 16, 1, 256, 2048), (1, 300, 16, 1, 256, 64),
+                   (1, 1000, 16, 2, 96, 256))
+
+
+def _flash_hybrid_rows(torch, dev, gen, row, report) -> None:
+    """flash_attention at ``FA_HYBRID_CASES`` in fp32 and bf16, each held to
+    its plain version at the tolerances of the flash checks above and timed
+    against it and ``scaled_dot_product_attention`` with the same mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s_, h, kvh, hd, window in FA_HYBRID_CASES:
+            q = torch.randn(b, s_, h, hd, generator=gen, device=dev).to(dtype)
+            k = torch.randn(b, s_, kvh, hd, generator=gen, device=dev).to(dtype)
+            v = torch.randn(b, s_, kvh, hd, generator=gen, device=dev).to(dtype)
+            got = fa.flash_attention(q, k, v, causal=True, window=window)
+            want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                            causal=True, window=window).to(dtype)
+            tol = (dict(atol=1e-3, rtol=1e-2) if dtype == torch.bfloat16
+                   else dict(atol=3e-5, rtol=3e-5))
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+            err = (got.float() - want.float()).abs().max().item()
+            mask = fa.attention_mask(s_, s_, True, window, dev)
+            qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            t = time_ms(torch, lambda: fa.flash_attention(
+                q, k, v, causal=True, window=window), iters=10)
+            t_plain = time_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, causal=True, window=window), iters=10)
+            t_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, enable_gqa=True), iters=10)
+            live = int(mask.sum().item())
+            dname = str(dtype)[6:]
+            b_ms, b_by = row("flash_attention",
+                             "src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention/kernel.py:29",
+                             err, t[0], t_plain[0], t_lib[0],
+                             q.element_size() * (2 * q.numel() + 2 * k.numel()),
+                             b * h * live * 4 * hd,
+                             BF16_FLOPS if dtype == torch.bfloat16
+                             else FP32_FLOPS, dname, path=HYBRID)
+            report("flash_attention", (b, s_, s_, h, kvh, hd, dname,
+                                       f"window {window}"),
+                   err, t, t_plain, t_lib, b_ms, b_by)
+            del q, k, v, qh, kh, vh, got, want, mask
 
 
 def _block_attention_gates(torch, gated, floor_ms) -> None:
@@ -1232,11 +1310,14 @@ def run_stream_path(torch, counters, comp, hb) -> None:
 # phase 8: the LM path (prefill and serving)
 # ---------------------------------------------------------------------------
 
-LM_MODELS = (("qwen2-1.5b", "flash_attention"), ("mamba2-370m", "ssd_scan"))
+HYBRID = "recurrentgemma-9b"
+# (arch, its kernel); the hybrid's flash launches go to its own rows
+LM_MODELS = (("qwen2-1.5b", "flash_attention"), ("mamba2-370m", "ssd_scan"),
+             (HYBRID, "flash_attention"))
 PREFILL_TOKENS = 4096
 CONSISTENCY_PROMPT = 64
 # forward's last logits (the kernels, chunked) against the engine's prefill
-# (one decode step at a time, plain code), fp32 through 28 or 48 layers
+# (one decode step at a time, plain code), fp32 through 28, 48 or 38 layers
 CONSISTENCY_ATOL = 1e-3
 SERVE = dict(requests=8, slots=4, prompt=32, new=16, max_len=128)
 # decode_step calls per request: the prompt's prefill, then all new tokens
@@ -1248,14 +1329,23 @@ DECODE_STEPS = 16
 TAIL = 64
 
 
+def kernel_layers(cfg) -> int:
+    """The layers that run the model's kernel: every layer, or the hybrid's
+    local-attention layers (one in ``attn_period``)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_period
+    return cfg.n_layers
+
+
 def lm_prefill(torch, api, params, cfg, run, tokens, kernel,
                counters) -> dict:
     """``forward`` over ``tokens`` (the prefill) after a warm-up: wall and
     tokens/s, launches of every counter, the device busy time of a profiled
     repeat and the part of it in CUDA kernels whose name holds the kernel's
-    first word.  Fails unless the kernel launched once per layer and the
-    logits are finite and of the expected shape.  Returns the numbers and
-    the logits of the last ``TAIL`` positions in fp32."""
+    first word.  Fails unless the kernel launched once per layer that runs
+    it (``kernel_layers``) and the logits are finite and of the expected
+    shape.  Returns the numbers and the logits of the last ``TAIL``
+    positions in fp32."""
     from torch.profiler import ProfilerActivity, profile
 
     api.forward(params, cfg, run, tokens[:, :256])       # warm-up
@@ -1267,10 +1357,10 @@ def lm_prefill(torch, api, params, cfg, run, tokens, kernel,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: c.value for name, c in counters.items()}
-    if launches[kernel] != cfg.n_layers:
+    if launches[kernel] != kernel_layers(cfg):
         raise CheckFailed(f"{cfg.arch} forward ({run.compute_dtype}) launched "
                           f"{kernel} {launches[kernel]} times, not once per "
-                          f"layer ({cfg.n_layers})")
+                          f"layer that runs it ({kernel_layers(cfg)})")
     if (tuple(logits.shape) != (1, tokens.shape[1], cfg.vocab)
             or not torch.isfinite(logits).all()):
         raise CheckFailed(f"{cfg.arch} forward ({run.compute_dtype}) gave "
@@ -1284,7 +1374,7 @@ def lm_prefill(torch, api, params, cfg, run, tokens, kernel,
     parts = device_ms_by_name(torch, prof, kernel.split("_")[0])
     return dict(wall=wall, tokens_s=tokens.shape[1] / wall, busy=busy,
                 mine=sum(parts.values()), parts=parts, launches=launches,
-                tail=tail)
+                tail=tail, top=top_device_ms(torch, prof))
 
 
 def print_prefill(arch, kernel, dtype, r) -> None:
@@ -1295,12 +1385,15 @@ def print_prefill(arch, kernel, dtype, r) -> None:
           f"({mine / busy if busy else 0.0:.4f} of it; by CUDA kernel: "
           + ", ".join(f"{k} {v:.3f}" for k, v in r["parts"].items())
           + f"); launches {json.dumps(r['launches'])}", flush=True)
+    print(f"lm {arch} prefill {dtype}: most device time: " + "; ".join(
+        f"{name} {ms:.3f} ms ({share:.4f})" for name, ms, share in r["top"]),
+        flush=True)
 
 
 def run_lm_path(torch, dev, counters) -> dict:
     """Prefill (fp32, then bf16), consistency and serving for each LM model;
     returns the launches of each model's kernel in its prefill runs, keyed
-    by (kernel, dtype)."""
+    by (kernel, dtype), and the hybrid's by (kernel, dtype, arch)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1318,15 +1411,18 @@ def run_lm_path(torch, dev, counters) -> dict:
 
     prefill_launches = {}
     for arch, kernel in LM_MODELS:
+        path = (arch,) if arch == HYBRID else ()
         cfg, run = get_config(arch), RunConfig()
         gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = registry.init_params(cfg, run, gen, dev)
         api = registry.get_model(cfg)
         n_params = sum(_numel(params))
-        print(f"lm {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-              f"vocab {cfg.vocab}, {n_params / 1e6:.1f} M params (seeded, "
-              f"fp32), made in {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"lm {arch}: {cfg.n_layers} layers ({kernel_layers(cfg)} run "
+              f"{kernel}), d_model {cfg.d_model}, vocab {cfg.vocab}, "
+              f"{n_params / 1e6:.1f} M params (seeded, fp32), made in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         tokens = torch.randint(0, cfg.vocab, (1, PREFILL_TOKENS),
                                generator=gen, device=dev)
 
@@ -1334,7 +1430,7 @@ def run_lm_path(torch, dev, counters) -> dict:
         r32 = lm_prefill(torch, api, params, cfg, run, tokens, kernel,
                          counters)
         print_prefill(arch, kernel, "float32", r32)
-        prefill_launches[kernel, "float32"] = r32["launches"][kernel]
+        prefill_launches[(kernel, "float32") + path] = r32["launches"][kernel]
 
         # 1b. the same prefill in bf16 (the JAX package's deployment dtype),
         # same fp32 params; then once more with the kernel's wrapper swapped
@@ -1344,7 +1440,8 @@ def run_lm_path(torch, dev, counters) -> dict:
                          counters)
         print_prefill(arch, kernel, "bfloat16", r16)
         if kernel == "flash_attention":
-            prefill_launches[kernel, "bfloat16"] = r16["launches"][kernel]
+            prefill_launches[(kernel, "bfloat16") + path] = \
+                r16["launches"][kernel]
         tail_plain = _forward_plain(torch, api, params, cfg, run16, tokens,
                                     kernel)
         ref = r32["tail"]
@@ -1376,10 +1473,10 @@ def run_lm_path(torch, dev, counters) -> dict:
         if not diff <= CONSISTENCY_ATOL:
             raise CheckFailed(f"{arch}: forward and engine prefill differ by "
                               f"{diff}")
-        if cfg.family == "dense":
-            _check_kv_quantize(torch, arch, eng.prefill(
+        if cfg.family != "ssm":
+            _check_kv_quantize(torch, arch, _kv_cache(eng.prefill(
                 prompt, api.init_decode_state(params, cfg, run, 1,
-                                              SERVE["max_len"]))[0].caches)
+                                              SERVE["max_len"]))[0]))
 
         # where a serving step's time goes: the device time of one
         # decode_step (B 1, as the engine runs each slot) against its wall
@@ -1424,17 +1521,20 @@ def run_lm_path(torch, dev, counters) -> dict:
                 raise CheckFailed(f"{arch} serve (kv_tau {tau}) returned "
                                   f"{len(outs[tau])} completions, "
                                   f"{gen_tokens} tokens")
-            if tau is not None and cfg.family == "dense" \
+            if tau is not None and cfg.family != "ssm" \
                     and launches["quantize"] <= 0:
                 raise CheckFailed(f"{arch}: the kv_tau run launched no "
                                   f"quantize kernel")
         agree = np.mean([np.mean(a.tokens == b.tokens)
                          for a, b in zip(outs[None], outs[KV_TAU])])
         print(f"lm {arch} serve: token agreement raw KV vs kv_tau "
-              f"{KV_TAU}: {agree:.4f}" + ("" if cfg.family == "dense" else
+              f"{KV_TAU}: {agree:.4f}" + ("" if cfg.family != "ssm" else
                                           " (an SSM has no KV cache)"),
               flush=True)
-        del params, eng
+        print(f"lm {arch}: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        # free the params before the next model (and the training phase)
+        del params, eng, state, full, last, prompt, tokens
         torch.cuda.empty_cache()
     return prefill_launches
 
@@ -1455,6 +1555,12 @@ def _forward_plain(torch, api, params, cfg, run, tokens, kernel):
             return api.forward(params, cfg, run, tokens)[:, -TAIL:].float()
     finally:
         setattr(mod, attr, wrapper)
+
+
+def _kv_cache(state):
+    """The decode state's stacked KV cache: the dense family's caches, the
+    hybrid's attention-layer ring buffers."""
+    return state.caches if hasattr(state, "caches") else state.triples["attn"]
 
 
 def _check_kv_quantize(torch, arch, caches) -> None:
@@ -1618,10 +1724,10 @@ def _grads_per_leaf_close(what, got, want, frac=1e-5) -> float:
 
 
 def train_card_vs_cpu(torch, dev, counters) -> None:
-    """One train step's loss and gradients of reduced qwen2-1.5b and
-    mamba2-370m on the card (the kernels) against the CPU (their plain
-    versions): the loss at 1e-5, every gradient at 1e-5 of its leaf's
-    largest; TF32 off.  The step itself also runs on the card."""
+    """One train step's loss and gradients of reduced qwen2-1.5b,
+    mamba2-370m and recurrentgemma-9b on the card (the kernels) against the
+    CPU (their plain versions): the loss at 1e-5, every gradient at 1e-5 of
+    its leaf's largest; TF32 off.  The step itself also runs on the card."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
@@ -1642,10 +1748,10 @@ def train_card_vs_cpu(torch, dev, counters) -> None:
             c.reset()
         l_dev, g_dev = grad_fn(_tree_to(params, dev), _tree_to(tb, dev))
         n = counters[kernel].value
-        if n != cfg.n_layers:
+        if n != kernel_layers(cfg):
             raise CheckFailed(f"{arch} reduced: the train step's forward "
                               f"launched {kernel} {n} times, not once per "
-                              f"layer ({cfg.n_layers})")
+                              f"layer that runs it ({kernel_layers(cfg)})")
         if not abs(l_dev.item() - l_cpu.item()) <= 1e-5 * abs(l_cpu.item()):
             raise CheckFailed(f"{arch} reduced: loss on the card "
                               f"{l_dev.item()} against the CPU's "

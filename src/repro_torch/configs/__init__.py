@@ -11,6 +11,7 @@ _ARCH_MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "qwen2-1.5b": "qwen2_1_5b",
     "mamba2-370m": "mamba2_370m",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 

@@ -45,7 +45,9 @@
 //   tensor cores.  O is scaled by 1/l, staged in
 //   its own rows of the Q tile and stored as bf16 with 16-byte stores.
 //   Every head size takes it: hd 16, 32, 48 and 64 run as 64 (the columns
-//   past hd load as zeros and are not stored), hd 128 as 128.
+//   past hd load as zeros and are not stored), hd 128 as 128, and hd 256 as
+//   256 with one consumer warpgroup (64 queries) a block and 3 stages,
+//   since one thread's O is then 128 fp32 registers (`Layout`).
 // * float32: `flash_fwd_f32_kernel`, fp32 FMA (roof 67 TFLOP/s; TF32 would
 //   break the fp32 parity).  One block of 128 threads per (b, h, 64-query
 //   tile), K/V tiles of 128 keys.  A thread owns an 8 x 8 block of the
@@ -55,7 +57,9 @@
 //   fed by float4 reads of p and V, 4 FMAs per float.  K and V have one
 //   buffer each and arrive by `cp.async` one tile ahead: the next K tile
 //   loads while p and P V are computed, the next V tile while the next
-//   scores are.  200 KB of shared memory a block at hd 128.
+//   scores are.  200 KB of shared memory a block at hd 128; at hd 256 the
+//   key tiles are 64 wide (211 KB) and a thread holds 8 x 16 context
+//   columns.
 // Built with -O3 and no --use_fast_math.
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -110,9 +114,16 @@ __device__ __forceinline__ bool live_key(int tq, int tk, int Tk, int causal,
 namespace simt {
 
 constexpr int BQ = 64;          // queries per block
-constexpr int BK = 128;         // keys per tile
 constexpr int NT = 128;         // threads per block, 8 (ty) x 16 (tx)
-constexpr int LDP = BK + 4;     // row stride of the p tile
+
+// Keys per tile: 128, and 64 at hd 256, where a tile of 128 keys would need
+// 364,544 bytes of shared memory (a block may have 232,448).
+template <int HD>
+struct Tile {
+  static constexpr int BK = HD > 128 ? 64 : 128;
+  static constexpr int NJ = BK / 16;      // score columns per thread
+  static constexpr int LDP = BK + 4;      // row stride of the p tile
+};
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            int bytes) {
@@ -160,8 +171,9 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
 
 template <int HD>
 constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (size_t)(BQ * (HD + 4) + BK * (HD + 4) + BK * HD + BQ * LDP);
+  using T = Tile<HD>;
+  return sizeof(float) * (size_t)(BQ * (HD + 4) + T::BK * (HD + 4) +
+                                  T::BK * HD + BQ * T::LDP);
 }
 
 __device__ __forceinline__ float lane_of(const float4& v, int u) {
@@ -174,10 +186,11 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      int S, int Tk, int H, int KV, int B, int causal,
                      int window, float scale_log2) {
+  constexpr int BK = Tile<HD>::BK, NJ = Tile<HD>::NJ, LDP = Tile<HD>::LDP;
   constexpr int LD = HD + 4;      // row stride of the Q and K tiles
   constexpr int CPT = HD / 16;    // context columns per thread
-  // hd 64 and 128: columns 4*tx + 64*c + e, read and written as float4;
-  // hd 16, 32, 48: columns tx + 16*c
+  // hd 64, 128 and 256: columns 4*tx + 64*c + e, read and written as
+  // float4; hd 16, 32, 48: columns tx + 16*c
   constexpr bool VEC = HD % 64 == 0;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);   // (BQ, LD)
@@ -222,11 +235,11 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait<1>();           // Q and this K tile have landed
     __syncthreads();
 
-    float sc[8][8];
+    float sc[8][NJ];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
+      for (int j = 0; j < NJ; ++j) sc[i][j] = 0.f;
 #pragma unroll 2
     for (int d = 0; d < HD; d += 4) {
       float4 a[8];
@@ -234,7 +247,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 8; ++i)
         a[i] = *reinterpret_cast<const float4*>(&sQ[(ty * 8 + i) * LD + d]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const float4 bb =
             *reinterpret_cast<const float4*>(&sK[(tx + 16 * j) * LD + d]);
 #pragma unroll
@@ -255,10 +268,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int tq = q0 + ty * 8 + i + off;
-      float live[8];
+      float live[NJ];
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const bool ok = live_key(tq, k0 + tx + 16 * j, Tk, causal, window);
         live[j] = ok ? 1.f : 0.f;
         sc[i][j] = ok ? sc[i][j] * scale_log2 : NEG_INF;
@@ -268,7 +281,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float alpha = exp2f(m_i[i] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const float p = exp2f(sc[i][j] - m_new) * live[j];
         sP[(ty * 8 + i) * LDP + tx + 16 * j] = p;
         rs += p;
@@ -343,6 +356,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int Tk, int H, int KV, int causal, int window,
            float scale_log2, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
+  static_assert(smem_bytes<HD>() <= 232448, "shared memory of one block");
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -362,21 +376,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // ===========================================================================
 namespace tc {
 
-constexpr int BQ = 128;         // queries per block: two consumer warpgroups
 constexpr int BK = 64;          // keys per tile
-constexpr int STAGES = 4;       // K/V tiles in flight
-constexpr int NT = 288;         // 2 consumer warpgroups + 1 producer warp
 constexpr int ROW = 128;        // bytes of one swizzled row: 64 bf16
 
 // A tile of `rows` x HDP bf16 is HDP / 64 column blocks of rows x 64, each
 // block rows x 128 bytes in TMA's 128-byte swizzle (16-byte chunk c of row r
 // at chunk c ^ (r % 8)), which is also `wgmma`'s 128B-swizzle layout.
+//
+// Up to hd 128 a block has two consumer warpgroups (128 queries) and a ring
+// of 4 K/V stages.  At hd 256 a consumer thread's O alone is 128 fp32
+// registers, beside S (32) and P (32): two warpgroups and the producer warp
+// (288 threads) would leave each thread 227 registers, so a block has one
+// consumer warpgroup (64 queries, 160 threads, up to 255 registers each)
+// and 3 stages (32 KB of Q and 3 x 64 KB of K and V, within 227 KB).
 template <int HDP>
 struct Layout {
+  static constexpr int NWG = HDP > 128 ? 1 : 2;  // consumer warpgroups
+  static constexpr int BQ = 64 * NWG;            // queries per block
+  static constexpr int NT = 128 * NWG + 32;      // + one producer warp
+  static constexpr int STAGES = HDP > 128 ? 3 : 4;   // K/V tiles in flight
   static constexpr uint32_t Q_BYTES = BQ * HDP * 2;
   static constexpr uint32_t KV_BYTES = BK * HDP * 2;     // one K or V tile
   static constexpr uint32_t BARS = Q_BYTES + 2 * STAGES * KV_BYTES;
   static constexpr size_t SMEM = 1024 + BARS + 8 * (1 + 3 * STAGES);
+  static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -551,7 +574,7 @@ __device__ __forceinline__ uint32_t swz(int rows, int r, int c) {
 }
 
 template <int HDP>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(Layout<HDP>::NT, 1)
 flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
@@ -560,6 +583,7 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             int window, float scale_log2) {
   using L = Layout<HDP>;
   constexpr int NB = HDP / 64;         // 64-column blocks of a tile
+  constexpr int BQ = L::BQ, STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   // 1024-byte alignment, which the swizzle atoms need
   const uint32_t raw = smem_u32(smem_raw);
@@ -588,14 +612,14 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int s = 0; s < STAGES; ++s) {
       bar_init(k_full(s), 1);
       bar_init(v_full(s), 1);
-      bar_init(empty(s), 8);           // one arrival per consumer warp
+      bar_init(empty(s), 4 * L::NWG);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp == 8) {
+  if (warp == 4 * L::NWG) {
     // ---- producer: one thread issues every TMA load ----
     if (lane == 0) {
       bar_expect_tx(q_full, L::Q_BYTES);
@@ -653,7 +677,16 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int kk = 0; kk < BK / 16; ++kk) {
       // V's (keys, hd) tile read transposed: 16 keys a step
       const uint64_t dv = desc(vt + kk * 16 * ROW, BK * ROW, 1024);
-      if constexpr (HDP == 128) {
+      if constexpr (HDP == 256) {
+        // columns 128..255 start two 64-column blocks on; their
+        // accumulators are oacc[64..127], as in one n256 product
+        const uint64_t dv2 =
+            desc(vt + 2 * BK * ROW + kk * 16 * ROW, BK * ROW, 1024);
+        wgmma_rs_n128(oacc, p_hi + 4 * kk, dv);
+        wgmma_rs_n128(oacc + 64, p_hi + 4 * kk, dv2);
+        wgmma_rs_n128(oacc, p_lo + 4 * kk, dv);
+        wgmma_rs_n128(oacc + 64, p_lo + 4 * kk, dv2);
+      } else if constexpr (HDP == 128) {
         wgmma_rs_n128(oacc, p_hi + 4 * kk, dv);
         wgmma_rs_n128(oacc, p_lo + 4 * kk, dv);
       } else {
@@ -857,17 +890,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int Tk, int H, int KV, int hd, int causal, int window,
            float scale_log2, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  int st = make_map(&mq, q, B, S, H, hd, BQ);
+  int st = make_map(&mq, q, B, S, H, hd, Layout<HDP>::BQ);
   if (!st) st = make_map(&mk, k, B, Tk, KV, hd, BK);
   if (!st) st = make_map(&mv, v, B, Tk, KV, hd, BK);
   if (st) return st;
-  const size_t smem = Layout<HDP>::SMEM;
+  using L = Layout<HDP>;
+  const size_t smem = L::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16_wgmma_kernel<HDP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = ((S + BQ - 1) / BQ) * H * B;
-  flash_fwd_bf16_wgmma_kernel<HDP><<<grid, NT, smem, stream>>>(
+  const int grid = ((S + L::BQ - 1) / L::BQ) * H * B;
+  flash_fwd_bf16_wgmma_kernel<HDP><<<grid, L::NT, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), S, Tk, H, KV, B, hd,
       causal, window, scale_log2);
   return (int)cudaGetLastError();
@@ -877,17 +911,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Returns 0 when launched, a cudaError_t
-// code, or 10000 + a CUresult when a TMA descriptor could not be made.
+// dtype: 0 float32, 1 bfloat16.  `hd` is the head size of q, k, v as laid
+// out (a size the kernels are built for); `scale_hd` the model's own, whose
+// 1 / sqrt scales the scores: the wrapper zero-pads any other head size up
+// to the next built one, which adds nothing to a score.  Returns 0 when
+// launched, a cudaError_t code, or 10000 + a CUresult when a TMA descriptor
+// could not be made.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int dtype, int B,
                                    int S, int Tk, int H, int KV, int hd,
-                                   int causal, int window,
+                                   int scale_hd, int causal, int window,
                                    cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV) {
+  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV || scale_hd <= 0 ||
+      scale_hd > hd) {
     return (int)cudaErrorInvalidValue;
   }
-  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)hd));
+  const float scale_log2 =
+      (float)(1.4426950408889634 / sqrt((double)scale_hd));
   if (dtype == 0) {
     switch (hd) {
       case 16: return simt::launch<16>(q, k, v, o, B, S, Tk, H, KV, causal, window, scale_log2, stream);
@@ -895,6 +935,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       case 48: return simt::launch<48>(q, k, v, o, B, S, Tk, H, KV, causal, window, scale_log2, stream);
       case 64: return simt::launch<64>(q, k, v, o, B, S, Tk, H, KV, causal, window, scale_log2, stream);
       case 128: return simt::launch<128>(q, k, v, o, B, S, Tk, H, KV, causal, window, scale_log2, stream);
+      case 256: return simt::launch<256>(q, k, v, o, B, S, Tk, H, KV, causal, window, scale_log2, stream);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -904,6 +945,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
         return tc::launch<64>(q, k, v, o, B, S, Tk, H, KV, hd, causal, window, scale_log2, stream);
       case 128:
         return tc::launch<128>(q, k, v, o, B, S, Tk, H, KV, hd, causal, window, scale_log2, stream);
+      case 256:
+        return tc::launch<256>(q, k, v, o, B, S, Tk, H, KV, hd, causal, window, scale_log2, stream);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -10,7 +10,12 @@ kernel for CUDA tensors; ``launches`` counts kernel launches only.  The
 kernel has two paths, chosen by dtype alone: bfloat16 runs on the tensor
 cores (``wgmma``) for every head size in ``HEAD_DIMS`` and rounds p to
 bfloat16 before the P.V product, as FlashAttention does; float32 runs in
-fp32 FMA.
+fp32 FMA.  Like the TPU wrapper, it takes any (B, S, H, hd) up to hd 256:
+q, k, v that are not contiguous or do not start on a 16-byte boundary are
+copied, and a head size with no kernel of its own is zero-padded to the
+next one in ``HEAD_DIMS`` (zero columns add nothing to a score; the scale
+stays 1/sqrt of the true head size).  Above 256 it raises: ``wgmma``'s N
+and a block's shared memory end there.
 
 One divergence, as in the JAX package: a query row that no key reaches
 (causal with S > T) gets zeros from the kernel, as from the TPU kernel, and a
@@ -36,7 +41,7 @@ Tensor = torch.Tensor
 launches = build.LaunchCounter()
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 48, 64, 128)     # the head sizes the kernel is built for
+HEAD_DIMS = (16, 32, 48, 64, 128, 256)   # the head sizes the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -96,7 +101,7 @@ def flash_attention_backward_plain(q: Tensor, k: Tensor, v: Tensor,
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 9 + [ctypes.c_void_p]
+        ctypes.c_int] * 10 + [ctypes.c_void_p]
     lib.flash_attention_fwd.restype = ctypes.c_int
 
 
@@ -112,21 +117,17 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         raise TypeError(f"flash_attention: kernel takes float32 or bfloat16 "
                         f"q, k, v of one type, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: kernel takes contiguous q, k, v")
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     if (k.shape != (b, t, kvh, hd) or v.shape != k.shape or kvh < 1
             or h % kvh):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if not 0 < hd <= HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention: head_dim {hd} outside 1.."
+                         f"{HEAD_DIMS[-1]} (wgmma's N and shared memory)")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
-    if any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("flash_attention: kernel takes q, k, v that start "
-                         "on 16-byte boundaries (TMA and cp.async)")
     return _FlashAttention.apply(q, k, v, causal, window)
 
 
@@ -147,20 +148,33 @@ class _FlashAttention(torch.autograd.Function):
             None, None)
 
 
+def _kernel_input(x: Tensor, hdp: int) -> Tensor:
+    """``x`` as the kernel reads it: contiguous, on a 16-byte boundary (TMA
+    and cp.async), its head columns zero-padded to ``hdp``; a copy only
+    where ``x`` is not so already."""
+    if x.shape[-1] != hdp:
+        return torch.nn.functional.pad(x, (0, hdp - x.shape[-1]))
+    if not x.is_contiguous():
+        return x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def _launch(q: Tensor, k: Tensor, v: Tensor, causal: bool,
             window: int) -> Tensor:
     """One kernel launch on checked CUDA q, k, v."""
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
+    hdp = next(d for d in HEAD_DIMS if d >= hd)
+    q, k, v = (_kernel_input(x, hdp) for x in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
-        return out
+        return out[..., :hd]
     lib = build.library("flash_attention", _declare)
     with torch.cuda.device(q.device):
         status = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, s, t, h, kvh, hd, int(causal), window,
+            _DTYPES[q.dtype], b, s, t, h, kvh, hdp, hd, int(causal), window,
             build.stream_ptr(q.device))
     build.check(status, "flash_attention_fwd")
     launches.add()
-    return out
+    return out if hdp == hd else out[..., :hd].contiguous()

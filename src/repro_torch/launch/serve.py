@@ -3,6 +3,7 @@ the compressed-KV option (runtime/kvcache), on the card by default.
 
   python -m repro_torch.launch.serve --arch qwen2-1.5b
   python -m repro_torch.launch.serve --arch mamba2-370m --reduced --device cpu
+  python -m repro_torch.launch.serve --arch recurrentgemma-9b --reduced --device cpu
 """
 from __future__ import annotations
 

@@ -71,8 +71,7 @@ def full_attention(params: dict, x: Tensor, *, positions: Tensor,
         raise NotImplementedError("cross-attention is not ported yet "
                                   "(VLM/whisper slices, ROADMAP.md)")
     q, k, v = _project_qkv(params, x, positions, theta, rope)
-    ctx = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), causal=causal, window=window)
+    ctx = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
     return torch.einsum("bshk,hkd->bsd", ctx, params["wo"].to(x.dtype))
 
 
@@ -122,3 +121,23 @@ def decode_attention(params: dict, x: Tensor, cache: KVCache, *,
     ctx = fa_ops.grouped_attention(q, cache.k, cache.v, mask)
     out = torch.einsum("bshk,hkd->bsd", ctx, params["wo"].to(dt))
     return out, KVCache(k=cache.k, v=cache.v, pos=pos + 1, window=cache.window)
+
+
+def prefill_cache(params: dict, x: Tensor, *, positions: Tensor, theta: float,
+                  rope: bool, max_len: int, window: int = 0) -> KVCache:
+    """Build a cache from a full prompt (keys stored rotated).  With a
+    window shorter than the prompt, the last ``window`` keys fill the ring:
+    the key of absolute time t lives at slot t % window."""
+    _, k, v = _project_qkv(params, x, positions, theta, rope)
+    b, s = x.shape[0], x.shape[1]
+    cache = KVCache.zeros(b, max_len, k.shape[2], k.shape[3], k.dtype,
+                          x.device, window)
+    if window and s > window:
+        slots = torch.arange(s - window, s, device=x.device) % window
+        cache.k[:, slots] = k[:, -window:]
+        cache.v[:, slots] = v[:, -window:]
+    else:
+        cache.k[:, :s] = k
+        cache.v[:, :s] = v
+    cache.pos = s
+    return cache

@@ -91,6 +91,12 @@ def unembed(params: dict, x: Tensor) -> Tensor:
     return x @ params["w"].to(x.dtype)
 
 
+def gelu(x: Tensor) -> Tensor:
+    """The tanh approximation, ``jax.nn.gelu``'s default
+    (``torch.nn.functional.gelu``'s default is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def swiglu_init(gen: torch.Generator, d: int, f: int, device, lead=()) -> dict:
     return {"w_gate": lecun_init(gen, (*lead, d, f), device),
             "w_in": lecun_init(gen, (*lead, d, f), device),

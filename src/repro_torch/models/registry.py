@@ -1,9 +1,10 @@
 """Arch family -> model functions, tiny configs for CPU tests, and weights
 carried across from the JAX package.
 
-The port has the dense (qwen) and SSM (mamba2) families; the others wait for
-later slices (ROADMAP.md).  ``params_from_jax`` and ``train_state_from_jax``
-carry the JAX package's params and training state across as numpy.
+The port has the dense (qwen), SSM (mamba2) and hybrid (recurrentgemma)
+families; the others wait for later slices (ROADMAP.md).
+``params_from_jax`` and ``train_state_from_jax`` carry the JAX package's
+params and training state across as numpy.
 """
 from __future__ import annotations
 
@@ -31,6 +32,8 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         from repro_torch.models import transformer as m
     elif cfg.family == "ssm":
         from repro_torch.models import ssd as m
+    elif cfg.family == "hybrid":
+        from repro_torch.models import rglru as m
     else:
         raise NotImplementedError(f"{cfg.arch}: the {cfg.family} family is "
                                   f"not ported yet (ROADMAP.md)")
@@ -95,6 +98,8 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         n_layers=max(2, min(4, cfg.n_layers)),
         d_model=64, n_heads=4, n_kv_heads=min(max(1, cfg.n_kv_heads // 4), 4),
         d_ff=128 if cfg.d_ff else 0, vocab=512, head_dim=16, max_seq=512)
+    if cfg.family == "hybrid":
+        changes.update(n_layers=5, attn_period=3, window=16, lru_width=64)
     if cfg.family == "ssm":
         changes.update(ssm_state=16, ssm_headdim=16, ssm_chunk=16,
                        n_heads=1, n_kv_heads=1)

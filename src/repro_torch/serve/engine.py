@@ -73,14 +73,25 @@ class ServeEngine:
         return state, logits
 
     def _compress_kv(self, state):
-        """Bounded KV quantization of the state's KV caches (the dense
-        family's; an SSM state has none and is returned as it is)."""
-        caches = getattr(state, "caches", None)
-        if not isinstance(caches, attn_mod.KVCache):
-            return state
-        return state._replace(caches=dataclasses.replace(
-            caches, k=quantize_kv_bounded(caches.k, self.kv_tau),
-            v=quantize_kv_bounded(caches.v, self.kv_tau)))
+        """Bounded KV quantization of every ``KVCache`` in the state (the
+        dense family's stacked caches, the hybrid's attention-layer ring
+        buffers), found through its named tuples and dicts; a state with
+        none (an SSM's) is returned as it is."""
+        def visit(node):
+            if isinstance(node, attn_mod.KVCache):
+                return dataclasses.replace(
+                    node, k=quantize_kv_bounded(node.k, self.kv_tau),
+                    v=quantize_kv_bounded(node.v, self.kv_tau))
+            if isinstance(node, dict):
+                new = {key: visit(v) for key, v in node.items()}
+                same = all(new[key] is node[key] for key in node)
+            elif isinstance(node, tuple) and hasattr(node, "_fields"):
+                new = type(node)(*(visit(v) for v in node))
+                same = all(a is b for a, b in zip(new, node))
+            else:
+                return node
+            return node if same else new
+        return visit(state)
 
     def _sample(self, logits: Tensor) -> Tensor:
         logits = logits[..., :self.cfg.vocab]

@@ -44,10 +44,13 @@ FA_BF16_TOL = dict(atol=5e-2, rtol=5e-2)
 FA_BF16_KERNEL_TOL = dict(atol=1e-3, rtol=1e-2)
 SSD_TOL = dict(atol=3e-4, rtol=3e-4)
 
-# test_kernels.py's flash sweep: (b, s, t, h, kv, hd) x (causal, window)
+# test_kernels.py's flash sweep: (b, s, t, h, kv, hd) x (causal, window),
+# with recurrentgemma-9b's heads (16 query heads on one kv head of 256) and
+# a head size the kernel is not built for (96, zero-padded to 128)
 FA_SHAPES = [(2, 256, 256, 4, 2, 64), (1, 200, 200, 8, 1, 32),
              (2, 128, 128, 4, 4, 128), (1, 64, 192, 2, 2, 16),
-             (1, 96, 96, 6, 3, 48)]
+             (1, 96, 96, 6, 3, 48), (1, 128, 128, 16, 1, 256),
+             (1, 80, 80, 4, 2, 96)]
 FA_MASKS = [(True, 0), (False, 0), (True, 64)]
 # test_kernels.py's SSD sweep (b, s, h, p, g, n, chunk), with ragged S and G = 2
 SSD_CASES = [(2, 64, 4, 16, 1, 8, 16), (1, 100, 2, 8, 2, 4, 32),
@@ -190,7 +193,8 @@ def test_flash_kernel_matches_plain(cuda_device, b, s, t, h, kv, hd, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal,window", FA_MASKS)
 @pytest.mark.parametrize("b,s,t,h,kv,hd",
-                         FA_SHAPES + [(1, 300, 300, 12, 2, 128)])
+                         FA_SHAPES + [(1, 300, 300, 12, 2, 128),
+                                      (1, 300, 300, 16, 1, 256)])
 def test_flash_kernel_matches_plain_bf16(cuda_device, b, s, t, h, kv, hd,
                                          causal, window):
     """The tensor-core path (every head size takes it): held to the fp32
@@ -223,16 +227,44 @@ def test_flash_kernel_zeroes_rows_no_key_reaches(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_refuses_misaligned_inputs(cuda_device, dtype):
+def test_flash_kernel_copies_misaligned_inputs(cuda_device, dtype):
     """TMA and cp.async read 16-byte aligned rows: a contiguous view that
-    starts off such a boundary is refused, never read wrong."""
+    starts off such a boundary is copied, and gives the kernel's answer on
+    the aligned inputs bit for bit."""
     q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
                for a in _fa_inputs(1, 64, 64, 2, 1, 16))
     flat = torch.empty(q.numel() + 1, dtype=dtype, device=cuda_device)
     shifted = flat[1:].view(q.shape)
     shifted.copy_(q)
-    with pytest.raises(ValueError, match="16-byte"):
-        t_fa.flash_attention(shifted, k, v)
+    assert shifted.data_ptr() % 16
+    torch.testing.assert_close(t_fa.flash_attention(shifted, k, v),
+                               t_fa.flash_attention(q, k, v), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_non_contiguous_inputs(cuda_device, dtype):
+    """q, k, v as head-major tensors transposed to (B, S, H, hd), strided
+    views: copied, then the kernel's answer on contiguous copies."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype).transpose(1, 2)
+               .contiguous().transpose(1, 2)
+               for a in _fa_inputs(1, 96, 96, 4, 2, 256, seed=2))
+    assert not q.is_contiguous()
+    got = t_fa.flash_attention(q, k, v, window=32)
+    want = t_fa.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), window=32)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_head_dim_above_256(cuda_device):
+    """wgmma's N and a block's shared memory end at 256 head columns."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _fa_inputs(1, 16, 16, 2, 1, 320))
+    before = t_fa.launches.value
+    with pytest.raises(ValueError, match="head_dim 320"):
+        t_fa.flash_attention(q, k, v)
+    assert t_fa.launches.value == before
 
 
 @pytest.mark.cuda
