@@ -28,8 +28,12 @@ Phases, each reported on its own lines:
    0.72 ms, gae_project at most 1.10x ``torch.matmul`` in turns;
    flash_attention also at recurrentgemma-9b's local attention (16 query
    heads on one kv head of 256, window 2048, 4096 tokens), a ragged hd-256
-   case and a padded head size (96), in fp32 and bf16, reported in rows of
-   their own (``"path": "recurrentgemma-9b"``), not gated;
+   case and a padded head size (96), at granite-moe-3b-a800m's causal
+   self-attention (hd 64) and at llama-3.2-vision-11b's non-causal
+   cross-attention (4096 queries on 1601 vision tokens, hd 128), in fp32
+   and bf16, reported in rows of their own (``"path"``: the model), not
+   gated; ssd_scan at N 256 (two tiles of the state), held to its plain
+   version, its time reported in a row of its own (``"path": "N 256"``);
 3. gradients: through each kernel's ``torch.autograd.Function`` against
    autograd through its plain version on the card — ``wq``, ``wk``, ``wv``
    and ``wo`` of one ``self_attention`` call at the S3D stripe
@@ -74,26 +78,37 @@ Phases, each reported on its own lines:
    must not share the host with training); each must exit 0 and print
    "verify OK" (with "container written to" or "container streamed to")
    or its three "[OK]" scenarios;
-8. LM path, for qwen2-1.5b, mamba2-370m and recurrentgemma-9b (10.445 B
-   params, 38 layers) at full width and depth with seeded weights:
-   ``forward`` over 1 x 4096 random tokens (the prefill, with its kernel
-   launched once per layer that runs it: every layer, or the hybrid's 12
-   local-attention layers, whose window of 2048 the prefill exceeds) in
-   fp32 and then with
-   ``compute_dtype="bfloat16"``; the bf16 prefill's last 64 logits through
-   the kernel are held to those through its plain version (both against
-   the fp32 prefill's); ``forward``'s last logits against the
-   serving engine's decode-step prefill on a 64-token prompt, the device
-   time of one ``decode_step`` against its wall, and ``ServeEngine.serve``
-   on 8 requests with raw KV and with ``kv_tau`` 0.05 (quantize launched
-   for the dense and the hybrid model's caches), and the peak device
-   memory of each model's run;
+8. LM path, for qwen2-1.5b, mamba2-370m, recurrentgemma-9b (10.445 B
+   params, 38 layers), granite-moe-3b-a800m (3.30 B, 40 experts, top 8)
+   and llama-3.2-vision-11b (9.79 B; its 16 tanh gates set to seeded
+   nonzero values, seeded vision embeddings (1, 1601, 4096)) at full width
+   and depth with seeded weights: ``forward`` over 1 x 4096 random tokens
+   (the prefill, with its kernel launched once per layer that runs it:
+   every layer, the VLM's 32 self- and 8 cross-attention layers, or the
+   hybrid's 12 local-attention layers, whose window of 2048 the prefill
+   exceeds) in fp32 and then with ``compute_dtype="bfloat16"``; the bf16
+   prefill's last 64 logits through the kernel are held to those through
+   its plain version (both against the fp32 prefill's; for the MoE, where
+   that fails and the two bf16 runs route differently, at the first
+   layer's attention output instead); ``forward``'s last logits against
+   the serving engine's decode-step prefill on a 64-token prompt (the MoE
+   at capacity factor n_experts / top_k, where nothing is dropped, with
+   the routing flips between the two counted); granite's routing at the
+   published capacity factor (``moe_router_stats`` and the dropped share);
+   the device time of one ``decode_step`` against its wall, and
+   ``ServeEngine.serve`` on 8 requests with raw KV and with ``kv_tau``
+   0.05 (each VLM request with its own vision embeddings as its frontend;
+   quantize launched for every model's KV caches), and the peak device
+   memory of each model's run; then llama4-scout-17b-a16e (4 of 48 layers)
+   and deepseek-coder-33b (16 of 62) at full width: the prefill in fp32
+   and bf16, one flash launch a layer, finite logits;
 9. LM training: gae_project and quantize at (841728, 256), the shape a
    gae train step gives them on mamba2-370m's in_proj, against their
    plain versions and timed (rows with ``"path": "train"``); one train
-   step's loss and gradients of reduced qwen2-1.5b, mamba2-370m and
-   recurrentgemma-9b on the card against the CPU (1e-5; 1e-5 of each
-   leaf's largest); qwen2-1.5b at
+   step's loss and gradients of reduced qwen2-1.5b, mamba2-370m,
+   recurrentgemma-9b, granite-moe-3b-a800m and llama-3.2-vision-11b on
+   the card against the CPU (1e-5; 1e-5 of each leaf's largest);
+   qwen2-1.5b at
    full width and depth trained 8 AdamW steps of B 1 x S 4096 with
    ``ce_chunk`` 512 (gates: finite losses, the last below step 0's,
    flash_attention launched 28 times a step; printed: steps/s, tokens/s,
@@ -515,11 +530,13 @@ def check_kernels(torch, dev) -> dict:
         raise CheckFailed(f"flash_attention float32 {shape}: {t32:.5f} ms, "
                           f"more than {FA_F32_MS_MAX} ms or not faster than "
                           f"scaled_dot_product_attention's {t32_lib:.5f} ms")
-    _flash_hybrid_rows(torch, dev, gen, row, report)
+    _flash_path_rows(torch, dev, gen, row, report)
 
     # ssd_scan: the mamba2-370m prefill (B 1, S 4096, H 32, P 64, G 1, N 128,
-    # chunk 256), a ragged S, G = 2.  Inputs as the JAX kernel tests make
-    # them.  The bound counts the chunked algorithm's products over the
+    # chunk 256), a ragged S, G = 2; and the same with N 256, two tiles of
+    # the state (no model of the repo has it: its own row, "path" "N 256",
+    # held to the plain version, its time reported, not gated).  Inputs as
+    # the JAX kernel tests make them.  The bound counts the chunked algorithm's products over the
     # chunks' real lengths: the causal half of C.B^T once per group (b and c
     # are shared by the group's heads), and per head the causal half of
     # scores.x, C.h and the state update.  Tolerance 3e-4 of the output's
@@ -528,7 +545,8 @@ def check_kernels(torch, dev) -> dict:
     # cumsum's order.
     for b, s_, h, p, g, n, chunk in ((1, 4096, 32, 64, 1, 128, 256),
                                      (1, 1000, 32, 64, 1, 128, 256),
-                                     (1, 4096, 32, 64, 2, 128, 256)):
+                                     (1, 4096, 32, 64, 2, 128, 256),
+                                     (1, 4096, 32, 64, 1, 256, 256)):
         x = torch.randn(b, s_, h, p, generator=gen, device=dev)
         dt = F.softplus(torch.randn(b, s_, h, generator=gen, device=dev))
         a_log = torch.rand(h, generator=gen, device=dev)
@@ -569,9 +587,12 @@ def check_kernels(torch, dev) -> dict:
                        + b * h * p * n)
         b_ms, b_by = row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
                          "src/repro/kernels/ssd_scan/kernel.py:32", err,
-                         t[0], t_plain[0], None, n_bytes, flops)
+                         t[0], t_plain[0], None, n_bytes, flops,
+                         path=SSD_WIDE if n > 128 else None)
         report("ssd_scan", (b, s_, h, p, g, n, chunk), err, t, t_plain, None,
                b_ms, b_by)
+        if n > 128:
+            continue
         if t[0] >= t_plain[0]:
             raise CheckFailed(f"ssd_scan {(b, s_, h, p, g, n, chunk)}: kernel "
                               f"{t[0]:.5f} ms is not faster than its plain "
@@ -582,44 +603,62 @@ def check_kernels(torch, dev) -> dict:
     return rows
 
 
-# flash_attention at recurrentgemma-9b's local attention: 16 query heads on
-# one kv head of 256, causal, window 2048, over the prefill's 4096 tokens
-# (its own rows, "path": "recurrentgemma-9b"); then a ragged hd-256 case and
-# a head size the kernel is not built for (96, zero-padded to 128).
-# Reported, not gated.
-FA_HYBRID_CASES = ((1, 4096, 16, 1, 256, 2048), (1, 300, 16, 1, 256, 64),
-                   (1, 1000, 16, 2, 96, 256))
+SSD_WIDE = "N 256"      # the ssd_scan row of a state in two tiles of 128
 
 
-def _flash_hybrid_rows(torch, dev, gen, row, report) -> None:
-    """flash_attention at ``FA_HYBRID_CASES`` in fp32 and bf16, each held to
+# flash_attention at the other model paths' shapes, each in rows of its own
+# ("path": the model), reported, not gated: recurrentgemma-9b's local
+# attention (16 query heads on one kv head of 256, causal, window 2048, over
+# the prefill's 4096 tokens), then a ragged hd-256 case and a head size the
+# kernel is not built for (96, zero-padded to 128); granite-moe-3b-a800m's
+# self-attention (24 query heads on 8 kv heads of 64, causal); and
+# llama-3.2-vision-11b's cross-attention (32 query heads on 8 kv heads of
+# 128, non-causal, 4096 queries on the 1601 vision tokens).
+# (path, b, s, t, h, kv heads, hd, causal, window)
+FA_PATH_CASES = (
+    ("recurrentgemma-9b", 1, 4096, 4096, 16, 1, 256, True, 2048),
+    ("recurrentgemma-9b", 1, 300, 300, 16, 1, 256, True, 64),
+    ("recurrentgemma-9b", 1, 1000, 1000, 16, 2, 96, True, 256),
+    ("granite-moe-3b-a800m", 1, 4096, 4096, 24, 8, 64, True, 0),
+    ("llama-3.2-vision-11b", 1, 4096, 1601, 32, 8, 128, False, 0))
+
+
+def _flash_path_rows(torch, dev, gen, row, report) -> None:
+    """flash_attention at ``FA_PATH_CASES`` in fp32 and bf16, each held to
     its plain version at the tolerances of the flash checks above and timed
-    against it and ``scaled_dot_product_attention`` with the same mask."""
+    against it and ``scaled_dot_product_attention`` with the same mask (no
+    mask where every key is live, or causal with S = T: SDPA's flash
+    backend takes those)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa
 
     for dtype in (torch.float32, torch.bfloat16):
-        for b, s_, h, kvh, hd, window in FA_HYBRID_CASES:
+        for path, b, s_, t_, h, kvh, hd, causal, window in FA_PATH_CASES:
             q = torch.randn(b, s_, h, hd, generator=gen, device=dev).to(dtype)
-            k = torch.randn(b, s_, kvh, hd, generator=gen, device=dev).to(dtype)
-            v = torch.randn(b, s_, kvh, hd, generator=gen, device=dev).to(dtype)
-            got = fa.flash_attention(q, k, v, causal=True, window=window)
+            k = torch.randn(b, t_, kvh, hd, generator=gen, device=dev).to(dtype)
+            v = torch.randn(b, t_, kvh, hd, generator=gen, device=dev).to(dtype)
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
             want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
-                                            causal=True, window=window).to(dtype)
+                                            causal=causal,
+                                            window=window).to(dtype)
             tol = (dict(atol=1e-3, rtol=1e-2) if dtype == torch.bfloat16
                    else dict(atol=3e-5, rtol=3e-5))
             torch.testing.assert_close(got.float(), want.float(), **tol)
             err = (got.float() - want.float()).abs().max().item()
-            mask = fa.attention_mask(s_, s_, True, window, dev)
+            mask = fa.attention_mask(s_, t_, causal, window, dev)
+            live = int(mask.sum().item())
+            sdpa_mask = (None if window == 0 and (not causal or s_ == t_)
+                         else mask)
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             t = time_ms(torch, lambda: fa.flash_attention(
-                q, k, v, causal=True, window=window), iters=10)
+                q, k, v, causal=causal, window=window), iters=10)
             t_plain = time_ms(torch, lambda: fa.flash_attention_plain(
-                q, k, v, causal=True, window=window), iters=10)
+                q, k, v, causal=causal, window=window), iters=10)
             t_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask, enable_gqa=True), iters=10)
-            live = int(mask.sum().item())
+                qh, kh, vh, attn_mask=sdpa_mask,
+                is_causal=causal and sdpa_mask is None, enable_gqa=True),
+                iters=10)
             dname = str(dtype)[6:]
             b_ms, b_by = row("flash_attention",
                              "src/repro_torch/csrc/flash_attention.cu",
@@ -628,9 +667,10 @@ def _flash_hybrid_rows(torch, dev, gen, row, report) -> None:
                              q.element_size() * (2 * q.numel() + 2 * k.numel()),
                              b * h * live * 4 * hd,
                              BF16_FLOPS if dtype == torch.bfloat16
-                             else FP32_FLOPS, dname, path=HYBRID)
-            report("flash_attention", (b, s_, s_, h, kvh, hd, dname,
-                                       f"window {window}"),
+                             else FP32_FLOPS, dname, path=path)
+            report("flash_attention", (b, s_, t_, h, kvh, hd, dname,
+                                       "causal" if causal else "non-causal",
+                                       f"window {window}", path),
                    err, t, t_plain, t_lib, b_ms, b_by)
             del q, k, v, qh, kh, vh, got, want, mask
 
@@ -1311,13 +1351,21 @@ def run_stream_path(torch, counters, comp, hb) -> None:
 # ---------------------------------------------------------------------------
 
 HYBRID = "recurrentgemma-9b"
-# (arch, its kernel); the hybrid's flash launches go to its own rows
+GRANITE = "granite-moe-3b-a800m"
+VLM = "llama-3.2-vision-11b"
+# (arch, its kernel), at full width and depth; the flash launches of every
+# model but qwen2-1.5b go to its own rows ("path")
 LM_MODELS = (("qwen2-1.5b", "flash_attention"), ("mamba2-370m", "ssd_scan"),
-             (HYBRID, "flash_attention"))
+             (HYBRID, "flash_attention"), (GRANITE, "flash_attention"),
+             (VLM, "flash_attention"))
+# at full width with the depth cut so that the fp32 params fit the card's
+# 80 GB (llama4-scout: 8.8 GB a layer; deepseek-coder-33b: 2.1 GB a layer):
+# prefill only, (arch, layers kept)
+CUT_MODELS = (("llama4-scout-17b-a16e", 4), ("deepseek-coder-33b", 16))
 PREFILL_TOKENS = 4096
 CONSISTENCY_PROMPT = 64
 # forward's last logits (the kernels, chunked) against the engine's prefill
-# (one decode step at a time, plain code), fp32 through 28, 48 or 38 layers
+# (one decode step at a time, plain code), fp32 through 28 to 48 layers
 CONSISTENCY_ATOL = 1e-3
 SERVE = dict(requests=8, slots=4, prompt=32, new=16, max_len=128)
 # decode_step calls per request: the prompt's prefill, then all new tokens
@@ -1327,33 +1375,93 @@ DECODE_STEPS = 16
 # the bf16 prefill's logits, through the kernel and through its plain
 # version, are compared with the fp32 prefill's on the last positions
 TAIL = 64
+# the VLM's cross layers' tanh gates are set to seeded values in this range
+# (at their init of 0 a cross layer adds nothing, and no check would see a
+# wrong cross-attention)
+VLM_GATES = (0.3, 1.0)
 
 
 def kernel_layers(cfg) -> int:
-    """The layers that run the model's kernel: every layer, or the hybrid's
+    """The layers that run the model's kernel: every layer (the VLM's 32
+    self- and 8 cross-attention layers alike), or the hybrid's
     local-attention layers (one in ``attn_period``)."""
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.attn_period
     return cfg.n_layers
 
 
-def lm_prefill(torch, api, params, cfg, run, tokens, kernel,
-               counters) -> dict:
-    """``forward`` over ``tokens`` (the prefill) after a warm-up: wall and
-    tokens/s, launches of every counter, the device busy time of a profiled
-    repeat and the part of it in CUDA kernels whose name holds the kernel's
-    first word.  Fails unless the kernel launched once per layer that runs
-    it (``kernel_layers``) and the logits are finite and of the expected
+class MoeRecorder:
+    """While active, records what ``models/moe.py`` routes: the expert ids
+    of each ``_route`` call, the kept mask of each ``_plan`` call and the
+    input of each ``moe_apply`` call, in call order (the module's functions
+    are swapped for recording wrappers and restored on exit)."""
+
+    def __init__(self, inputs: bool = False):
+        from repro_torch.models import moe
+        self.moe, self.with_inputs = moe, inputs
+        self.routes, self.keeps, self.inputs = [], [], []
+
+    def __enter__(self):
+        m = self.moe
+        route, plan, apply = self._orig = m._route, m._plan, m.moe_apply
+
+        def rec_route(params, xf, top_k):
+            out = route(params, xf, top_k)
+            self.routes.append(out[1])
+            return out
+
+        def rec_plan(expert_idx, e, c):
+            out = plan(expert_idx, e, c)
+            self.keeps.append(out[1])
+            return out
+
+        def rec_apply(params, x, **kw):
+            if self.with_inputs:
+                self.inputs.append((params, x))
+            return apply(params, x, **kw)
+        m._route, m._plan, m.moe_apply = rec_route, rec_plan, rec_apply
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route, self.moe._plan, self.moe.moe_apply = self._orig
+
+    def dropped_share(self) -> float:
+        kept = sum(int(k.sum().item()) for k in self.keeps)
+        return 1.0 - kept / max(1, sum(k.numel() for k in self.keeps))
+
+
+def routing_flips(torch, batched: list, stepped: list) -> int:
+    """Tokens whose set of top-k experts differs, summed over the layers,
+    between two runs' routes: each a (T, k) route a layer, or, for a
+    decode-step scan over the same tokens, a (1, k) route a layer and step
+    (step-major)."""
+    n_layers = len(batched)
+    if len(stepped) != n_layers:
+        stepped = [torch.cat(stepped[layer::n_layers])
+                   for layer in range(n_layers)]
+    return sum(int((a.sort(dim=-1).values != b.sort(dim=-1).values)
+                   .any(dim=-1).sum().item())
+               for a, b in zip(batched, stepped))
+
+
+def lm_prefill(torch, api, params, cfg, run, tokens, kernel, counters,
+               extra: dict) -> dict:
+    """``forward`` over ``tokens`` (the prefill; ``extra`` holds the VLM's
+    ``vision_embeds``) after a warm-up: wall and tokens/s, launches of
+    every counter, the device busy time of a profiled repeat and the part
+    of it in CUDA kernels whose name holds the kernel's first word.  Fails
+    unless the kernel launched once per layer that runs it
+    (``kernel_layers``) and the logits are finite and of the expected
     shape.  Returns the numbers and the logits of the last ``TAIL``
     positions in fp32."""
     from torch.profiler import ProfilerActivity, profile
 
-    api.forward(params, cfg, run, tokens[:, :256])       # warm-up
+    api.forward(params, cfg, run, tokens[:, :256], **extra)     # warm-up
     torch.cuda.synchronize()
     for c in counters.values():
         c.reset()
     t0 = time.perf_counter()
-    logits = api.forward(params, cfg, run, tokens)
+    logits = api.forward(params, cfg, run, tokens, **extra)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: c.value for name, c in counters.items()}
@@ -1368,7 +1476,7 @@ def lm_prefill(torch, api, params, cfg, run, tokens, kernel,
     tail = logits[:, -TAIL:].float().clone()
     del logits
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        api.forward(params, cfg, run, tokens)
+        api.forward(params, cfg, run, tokens, **extra)
         torch.cuda.synchronize()
     busy = device_ms(torch, prof)
     parts = device_ms_by_name(torch, prof, kernel.split("_")[0])
@@ -1390,10 +1498,35 @@ def print_prefill(arch, kernel, dtype, r) -> None:
         flush=True)
 
 
+def _seeded_model(torch, dev, cfg, run, gen, batch: int = 1):
+    """Seeded params of ``cfg`` on ``dev`` and the forward's extra inputs:
+    for the VLM, its tanh gates (16 at full depth) set to seeded values in
+    ``VLM_GATES`` and seeded ``vision_embeds`` (batch, n_vision_tokens,
+    d_model)."""
+    from repro_torch.models import registry
+
+    params = registry.init_params(cfg, run, gen, dev)
+    extra = {}
+    if cfg.family == "vlm":
+        cross = params["groups"]["cross"]
+        lo, hi = VLM_GATES
+        for gate in ("gate_attn", "gate_mlp"):
+            cross[gate] = lo + (hi - lo) * torch.rand(
+                cross[gate].shape, generator=gen, device=gen.device).to(dev)
+        extra["vision_embeds"] = torch.randn(
+            batch, cfg.n_vision_tokens, cfg.d_model, generator=gen,
+            device=gen.device).to(dev)
+    return params, extra
+
+
 def run_lm_path(torch, dev, counters) -> dict:
-    """Prefill (fp32, then bf16), consistency and serving for each LM model;
-    returns the launches of each model's kernel in its prefill runs, keyed
-    by (kernel, dtype), and the hybrid's by (kernel, dtype, arch)."""
+    """Prefill (fp32, then bf16), consistency and serving for each LM model
+    of ``LM_MODELS``, then the prefills of ``CUT_MODELS``; returns the
+    launches of each model's kernel in its prefill runs, keyed by (kernel,
+    dtype), and by (kernel, dtype, arch) for the models with rows of their
+    own."""
+    import dataclasses
+
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1411,39 +1544,49 @@ def run_lm_path(torch, dev, counters) -> dict:
 
     prefill_launches = {}
     for arch, kernel in LM_MODELS:
-        path = (arch,) if arch == HYBRID else ()
+        path = () if arch in ("qwen2-1.5b", "mamba2-370m") else (arch,)
         cfg, run = get_config(arch), RunConfig()
         gen = torch.Generator(device=dev).manual_seed(0)
         torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        params = registry.init_params(cfg, run, gen, dev)
+        params, extra = _seeded_model(torch, dev, cfg, run, gen)
         api = registry.get_model(cfg)
         n_params = sum(_numel(params))
         print(f"lm {arch}: {cfg.n_layers} layers ({kernel_layers(cfg)} run "
               f"{kernel}), d_model {cfg.d_model}, vocab {cfg.vocab}, "
               f"{n_params / 1e6:.1f} M params (seeded, fp32), made in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+              f"{time.perf_counter() - t0:.1f} s; device memory allocated "
+              f"before it {before / 2**30:.2f} GiB", flush=True)
+        if cfg.family == "vlm":
+            print(f"lm {arch}: tanh gates set to seeded values "
+                  f"gate_attn {_values(params['groups']['cross']['gate_attn'])}"
+                  f", gate_mlp {_values(params['groups']['cross']['gate_mlp'])}"
+                  f"; vision_embeds {tuple(extra['vision_embeds'].shape)} "
+                  f"seeded N(0, 1)", flush=True)
         tokens = torch.randint(0, cfg.vocab, (1, PREFILL_TOKENS),
                                generator=gen, device=dev)
 
         # 1. prefill: forward over 1 x 4096 tokens, fp32
         r32 = lm_prefill(torch, api, params, cfg, run, tokens, kernel,
-                         counters)
+                         counters, extra)
         print_prefill(arch, kernel, "float32", r32)
         prefill_launches[(kernel, "float32") + path] = r32["launches"][kernel]
+        if cfg.family == "moe":
+            _print_routing(torch, api, params, cfg, run, tokens)
 
         # 1b. the same prefill in bf16 (the JAX package's deployment dtype),
         # same fp32 params; then once more with the kernel's wrapper swapped
         # for its plain version, to hold the kernel to it on the model path
         run16 = RunConfig(compute_dtype="bfloat16")
         r16 = lm_prefill(torch, api, params, cfg, run16, tokens, kernel,
-                         counters)
+                         counters, extra)
         print_prefill(arch, kernel, "bfloat16", r16)
         if kernel == "flash_attention":
             prefill_launches[(kernel, "bfloat16") + path] = \
                 r16["launches"][kernel]
         tail_plain = _forward_plain(torch, api, params, cfg, run16, tokens,
-                                    kernel)
+                                    kernel, extra)
         ref = r32["tail"]
         e_kernel = (r16["tail"] - ref).abs().max().item()
         e_plain = (tail_plain - ref).abs().max().item()
@@ -1454,33 +1597,56 @@ def run_lm_path(torch, dev, counters) -> dict:
               f"plain version {e_plain:.5f} (max |logit| {scale:.4f}; gate "
               f"{limit:.5f} = 1.5 x plain + 1e-3 x max |logit|)", flush=True)
         if not e_kernel <= limit:
-            raise CheckFailed(f"{arch} bf16 prefill through {kernel} is "
-                              f"{e_kernel} from fp32, more than {limit}")
+            if cfg.family != "moe":
+                raise CheckFailed(f"{arch} bf16 prefill through {kernel} is "
+                                  f"{e_kernel} from fp32, more than {limit}")
+            _moe_bf16_gate(torch, api, params, cfg, run, run16, tokens)
         del r32, r16, tail_plain, ref
 
-        # 2. consistency: forward (kernel) against the engine's prefill
+        # 2. consistency: forward (kernel) against the engine's prefill; a
+        # dropping MoE runs it with capacity C = T (capacity factor
+        # n_experts / top_k), where forward drops nothing, as decode never
+        # does, and the routing flips between the two are counted
         prompt = tokens[:, :CONSISTENCY_PROMPT]
-        full = api.forward(params, cfg, run, prompt)[:, -1]
-        eng = ServeEngine(cfg, run, params, batch_size=1, max_len=128,
+        ccfg = cfg
+        if cfg.family == "moe":
+            ccfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        with MoeRecorder() as fwd_rec:
+            full = api.forward(params, ccfg, run, prompt, **extra)[:, -1]
+        eng = ServeEngine(ccfg, run, params, batch_size=1, max_len=128,
                           device=dev)
-        _, last = eng.prefill(prompt, api.init_decode_state(params, cfg, run,
-                                                            1, 128))
+        with MoeRecorder() as dec_rec:
+            _, last = eng.prefill(prompt, api.init_decode_state(
+                params, ccfg, run, 1, 128, **extra))
         diff = (full - last).abs().max().item()
+        moe_note = ""
+        if cfg.family == "moe":
+            moe_note = (f"; capacity factor {ccfg.capacity_factor} (C = T = "
+                        f"{CONSISTENCY_PROMPT}), dropped share "
+                        f"{fwd_rec.dropped_share():.6f}, routing flips "
+                        f"forward vs decode "
+                        f"{routing_flips(torch, fwd_rec.routes, dec_rec.routes)}"
+                        f" of "
+                        f"{CONSISTENCY_PROMPT * cfg.n_layers} (token, layer) "
+                        f"pairs")
         print(f"lm {arch} consistency: forward vs engine prefill on "
               f"{CONSISTENCY_PROMPT} tokens, last logits max abs diff "
               f"{diff:.3e} (max |logit| {full.abs().max().item():.3f}, "
-              f"tolerance {CONSISTENCY_ATOL})", flush=True)
+              f"tolerance {CONSISTENCY_ATOL}){moe_note}", flush=True)
         if not diff <= CONSISTENCY_ATOL:
             raise CheckFailed(f"{arch}: forward and engine prefill differ by "
                               f"{diff}")
+        del fwd_rec, dec_rec
         if cfg.family != "ssm":
             _check_kv_quantize(torch, arch, _kv_cache(eng.prefill(
                 prompt, api.init_decode_state(params, cfg, run, 1,
-                                              SERVE["max_len"]))[0]))
+                                              SERVE["max_len"], **extra))[0]))
 
         # where a serving step's time goes: the device time of one
         # decode_step (B 1, as the engine runs each slot) against its wall
-        state = api.init_decode_state(params, cfg, run, 1, SERVE["max_len"])
+        state = api.init_decode_state(params, cfg, run, 1, SERVE["max_len"],
+                                      **extra)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for t in range(DECODE_STEPS):
@@ -1493,12 +1659,19 @@ def run_lm_path(torch, dev, counters) -> dict:
               f"device busy {busy_ms:.3f} ms, idle share "
               f"{1 - busy_ms / step_ms:.4f}", flush=True)
 
-        # 3. serving: continuous batching, raw KV and kv_tau
+        # 3. serving: continuous batching, raw KV and kv_tau; a VLM request
+        # carries its own seeded vision embeddings as its frontend
         rng = np.random.default_rng(0)
-        reqs = [Request(rid=i, prompt=rng.integers(
-                    0, cfg.vocab, SERVE["prompt"]).astype(np.int32),
-                    max_new_tokens=SERVE["new"])
-                for i in range(SERVE["requests"])]
+        reqs = []
+        for i in range(SERVE["requests"]):
+            prompt_i = rng.integers(0, cfg.vocab,
+                                    SERVE["prompt"]).astype(np.int32)
+            front = None
+            if cfg.family == "vlm":
+                front = {"vision_embeds": rng.standard_normal(
+                    (cfg.n_vision_tokens, cfg.d_model), dtype=np.float32)}
+            reqs.append(Request(rid=i, prompt=prompt_i,
+                                max_new_tokens=SERVE["new"], frontend=front))
         outs = {}
         for tau in (None, KV_TAU):
             eng = ServeEngine(cfg, run, params, batch_size=SERVE["slots"],
@@ -1534,33 +1707,162 @@ def run_lm_path(torch, dev, counters) -> dict:
         print(f"lm {arch}: peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
         # free the params before the next model (and the training phase)
-        del params, eng, state, full, last, prompt, tokens
+        del params, extra, eng, state, full, last, prompt, tokens, reqs
         torch.cuda.empty_cache()
+    run_cut_models(torch, dev, counters)
     return prefill_launches
 
 
-def _forward_plain(torch, api, params, cfg, run, tokens, kernel):
+def run_cut_models(torch, dev, counters) -> None:
+    """``CUT_MODELS`` at full width with their depth cut: the prefill over
+    1 x 4096 tokens in fp32 and bf16, gated on one flash launch a layer and
+    finite logits, each reading printed beside the cut."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import registry
+
+    for arch, layers in CUT_MODELS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        cut = f"{arch} (depth cut: {layers} of {full.n_layers} layers)"
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        params = registry.init_params(cfg, RunConfig(), gen, dev)
+        api = registry.get_model(cfg)
+        print(f"lm {cut}: d_model {cfg.d_model}, vocab {cfg.vocab}, "
+              f"{sum(_numel(params)) / 1e6:.1f} M params (seeded, fp32); "
+              f"device memory allocated before it {before / 2**30:.2f} GiB",
+              flush=True)
+        tokens = torch.randint(0, cfg.vocab, (1, PREFILL_TOKENS),
+                               generator=gen, device=dev)
+        for run in (RunConfig(), RunConfig(compute_dtype="bfloat16")):
+            r = lm_prefill(torch, api, params, cfg, run, tokens,
+                           "flash_attention", counters, {})
+            print_prefill(cut, "flash_attention", run.compute_dtype, r)
+        print(f"lm {cut}: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        del params, tokens, r
+        torch.cuda.empty_cache()
+
+
+def _values(t) -> str:
+    return "[" + ", ".join(f"{v:.4f}" for v in t.tolist()) + "]"
+
+
+def _print_routing(torch, api, params, cfg, run, tokens) -> None:
+    """One more fp32 ``forward`` at the published capacity factor, recorded:
+    ``moe_router_stats`` on each layer's MoE input (expert load and its
+    coefficient of variation) and the share of (token, slot) pairs dropped
+    at capacity C."""
+    from repro_torch.models import moe
+
+    with torch.no_grad(), MoeRecorder(inputs=True) as rec:
+        api.forward(params, cfg, run, tokens)
+    c = moe._capacity(tokens.numel(), cfg.top_k, cfg.n_experts,
+                      cfg.capacity_factor)
+    stats = [moe.moe_router_stats(p, x, cfg.top_k) for p, x in rec.inputs]
+    cvs = [float(s["load_cv"]) for s in stats]
+    print(f"lm {cfg.arch} routing at S {tokens.shape[1]} (fp32, capacity "
+          f"factor {cfg.capacity_factor}, C = {c}): dropped share "
+          f"{rec.dropped_share():.6f} of {sum(k.numel() for k in rec.keeps)} "
+          f"(token, slot) pairs; moe_router_stats layer 0 expert_load "
+          f"{stats[0]['expert_load'].tolist()} load_cv {cvs[0]:.4f}; load_cv "
+          f"over the {len(cvs)} layers min {min(cvs):.4f} mean "
+          f"{sum(cvs) / len(cvs):.4f} max {max(cvs):.4f}", flush=True)
+
+
+def _moe_bf16_gate(torch, api, params, cfg, run32, run16, tokens) -> None:
+    """The bf16 gate for a MoE whose logits gate failed: the logits are
+    downstream of the router, and a routing flip after a bf16 attention
+    difference moves them more than the kernel does.  If the kernel's and
+    the plain version's bf16 runs route differently, the kernel is held,
+    at the same limit (1.5 x plain + 1e-3 x max |ref|), at the first
+    layer's attention output, which no routing reaches; if they route the
+    same, the logits gate's failure stands."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import common
+
+    with torch.no_grad():
+        with MoeRecorder() as k_rec:
+            api.forward(params, cfg, run16, tokens)
+        with _plain("flash_attention"), MoeRecorder() as p_rec:
+            api.forward(params, cfg, run16, tokens)
+    flips = routing_flips(torch, k_rec.routes, p_rec.routes)
+    print(f"lm {cfg.arch} bf16: routing flips between the run through "
+          f"flash_attention and through its plain version: {flips} of "
+          f"{tokens.shape[1] * cfg.n_layers} (token, layer) pairs",
+          flush=True)
+    if flips == 0:
+        raise CheckFailed(f"{cfg.arch} bf16 prefill through flash_attention "
+                          f"fails its logits gate with the same routing as "
+                          f"the plain version")
+    lp = common.layer(params["layers"], 0)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
+
+    def attn0(run):
+        x = common.embed(params["embed"], tokens).to(common.compute_dtype(run))
+        h = common.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        return attn_mod.full_attention(lp["attn"], h, positions=pos,
+                                       theta=cfg.rope_theta).float()
+
+    with torch.no_grad():
+        ref, got = attn0(run32), attn0(run16)
+        with _plain("flash_attention"):
+            plain = attn0(run16)
+    e_kernel = (got - ref).abs().max().item()
+    e_plain = (plain - ref).abs().max().item()
+    limit = 1.5 * e_plain + 1e-3 * ref.abs().max().item()
+    print(f"lm {cfg.arch} bf16 against fp32 at the first layer's attention "
+          f"output (no routing upstream): max abs diff through "
+          f"flash_attention {e_kernel:.6f}, through its plain version "
+          f"{e_plain:.6f} (max |ref| {ref.abs().max().item():.4f}; gate "
+          f"{limit:.6f}, the same 1.5 x plain + 1e-3 x max |ref|)",
+          flush=True)
+    if not e_kernel <= limit:
+        raise CheckFailed(f"{cfg.arch} bf16 attention through flash_attention "
+                          f"is {e_kernel} from fp32, more than {limit}")
+
+
+class _plain:
+    """While active, the wrapper of ``kernel`` ("flash_attention" or
+    "ssd_scan") is swapped for its plain version."""
+
+    def __init__(self, kernel: str):
+        from repro_torch.kernels.flash_attention import ops as fa
+        from repro_torch.kernels.ssd_scan import ops as sd
+        self.mod, self.attr, self.plain = (
+            (fa, "flash_attention", fa.flash_attention_plain)
+            if kernel == "flash_attention" else (sd, "ssd", sd.ssd_plain))
+
+    def __enter__(self):
+        self.wrapper = getattr(self.mod, self.attr)
+        setattr(self.mod, self.attr, self.plain)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.wrapper)
+
+
+def _forward_plain(torch, api, params, cfg, run, tokens, kernel, extra):
     """The last ``TAIL`` positions' fp32 logits of ``forward`` with the
     kernel's wrapper swapped, for this call only, for its plain version."""
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.ssd_scan import ops as sd
-
-    mod, attr, plain = ((fa, "flash_attention", fa.flash_attention_plain)
-                        if kernel == "flash_attention"
-                        else (sd, "ssd", sd.ssd_plain))
-    wrapper = getattr(mod, attr)
-    setattr(mod, attr, plain)
-    try:
-        with torch.no_grad():
-            return api.forward(params, cfg, run, tokens)[:, -TAIL:].float()
-    finally:
-        setattr(mod, attr, wrapper)
+    with torch.no_grad(), _plain(kernel):
+        return api.forward(params, cfg, run, tokens,
+                           **extra)[:, -TAIL:].float()
 
 
 def _kv_cache(state):
-    """The decode state's stacked KV cache: the dense family's caches, the
-    hybrid's attention-layer ring buffers."""
-    return state.caches if hasattr(state, "caches") else state.triples["attn"]
+    """The decode state's stacked KV cache: the dense and MoE families'
+    caches, the VLM's self-layer caches, the hybrid's attention-layer ring
+    buffers."""
+    if hasattr(state, "triples"):
+        return state.triples["attn"]
+    return (state.caches["selfs"] if isinstance(state.caches, dict)
+            else state.caches)
 
 
 def _check_kv_quantize(torch, arch, caches) -> None:
@@ -1725,9 +2027,11 @@ def _grads_per_leaf_close(what, got, want, frac=1e-5) -> float:
 
 def train_card_vs_cpu(torch, dev, counters) -> None:
     """One train step's loss and gradients of reduced qwen2-1.5b,
-    mamba2-370m and recurrentgemma-9b on the card (the kernels) against the
-    CPU (their plain versions): the loss at 1e-5, every gradient at 1e-5 of
-    its leaf's largest; TF32 off.  The step itself also runs on the card."""
+    mamba2-370m, recurrentgemma-9b, granite-moe-3b-a800m and
+    llama-3.2-vision-11b (nonzero tanh gates, seeded vision embeddings in
+    the batch) on the card (the kernels) against the CPU (their plain
+    versions): the loss at 1e-5, every gradient at 1e-5 of its leaf's
+    largest; TF32 off.  The step itself also runs on the card."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
@@ -1737,10 +2041,12 @@ def train_card_vs_cpu(torch, dev, counters) -> None:
     for arch, kernel in LM_MODELS:
         cfg = registry.reduced_config(get_config(arch))
         run = RunConfig(ce_chunk=16)
-        params = registry.init_params(cfg, run,
-                                      torch.Generator().manual_seed(0), "cpu")
+        params, extra = _seeded_model(torch, "cpu", cfg, run,
+                                      torch.Generator().manual_seed(0),
+                                      batch=2)
         batch = SyntheticCorpus(TokenPipelineConfig(
             vocab=cfg.vocab, seq_len=64, global_batch=2)).batch_at(0)
+        batch.update({k: v.numpy() for k, v in extra.items()})
         tb = {k: torch.from_numpy(v) for k, v in batch.items()}
         grad_fn = loop.value_and_grad(cfg, run)
         l_cpu, g_cpu = grad_fn(params, tb)

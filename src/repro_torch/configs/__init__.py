@@ -12,6 +12,10 @@ _ARCH_MODULES = {
     "qwen2-1.5b": "qwen2_1_5b",
     "mamba2-370m": "mamba2_370m",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
 }
 
 

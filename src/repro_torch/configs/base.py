@@ -108,7 +108,8 @@ class RunConfig:
 
     def __post_init__(self):
         """The port reads ``tp``, ``compute_dtype``, ``ce_chunk``,
-        ``gradient_compression``, ``grad_comp_rank`` and ``grad_comp_tau``,
+        ``moe_dispatch_groups``, ``gradient_compression``,
+        ``grad_comp_rank`` and ``grad_comp_tau``,
         and accepts either ``use_flash_kernel`` and either ``scan_layers``
         (both compute the same function); every other field must keep its
         default, so a config carried across fails here instead of running
@@ -122,8 +123,8 @@ class RunConfig:
 
 
 _HONOURED = ("tp", "compute_dtype", "use_flash_kernel", "scan_layers",
-             "ce_chunk", "gradient_compression", "grad_comp_rank",
-             "grad_comp_tau")
+             "ce_chunk", "moe_dispatch_groups", "gradient_compression",
+             "grad_comp_rank", "grad_comp_tau")
 
 
 @dataclasses.dataclass(frozen=True)

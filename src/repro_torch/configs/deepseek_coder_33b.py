@@ -1,0 +1,7 @@
+"""deepseek-coder-33b — dense llama-arch, GQA kv=8. [arXiv:2401.14196; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    arch="deepseek-coder-33b", family="dense",
+    n_layers=62, d_model=7168, n_heads=56, n_kv_heads=8, d_ff=19200,
+    vocab=32256, head_dim=128, rope_theta=100000.0)

@@ -9,7 +9,13 @@
 //
 // Shapes: x (B, S, H, P), dt (B, S, H), a_log (H,), b and c (B, S, G, N),
 // all fp32 and contiguous; head h reads group h / (H / G).  Outputs y
-// (B, S, H, P) and the final state (B, H, P, N), fp32.  N <= 128.
+// (B, S, H, P) and the final state (B, H, P, N), fp32.  Any N: the state
+// dimension is cut in tiles of NTILE = 128, a grid axis of the chunk state
+// and a loop in the C.B^T and C.h_in products, so shared memory and
+// registers do not grow with N.  The kernels are templates on MULTI
+// (N > NTILE): with one tile (every N <= 128, mamba2-370m's 128) the tile
+// loop and index are compile-time constants, the code the kernels had
+// before N was tiled.
 //
 // Bound on the H100: operations.  At the mamba2-370m shape (S = 4096, H = 32,
 // P = 64, N = 128, Q = 256) the products of the chunked algorithm (the causal
@@ -62,7 +68,7 @@ constexpr int TS = 64;          // rows of a tile of the chunk, columns of P
 constexpr int TK = 32;          // rows of t per step of the chunk state
 constexpr int LDW = TS + 4;     // row stride of the scores tile
 constexpr int NI = 8;           // rows n of the chunk state a thread holds:
-                                // 16 x 8 covers N <= 128
+constexpr int NTILE = 16 * NI;  // 16 x 8 = 128 rows, one tile of N
 
 struct Dims {
   int S, H, P, N, G, Q, nc;
@@ -73,14 +79,17 @@ struct Dims {
 __host__ __device__ inline int n4(int N) { return (N + 3) / 4 * 4; }
 __host__ __device__ inline int ptiles(int P) { return (P + TS - 1) / TS; }
 __host__ __device__ inline int qtiles(int Q) { return (Q + TS - 1) / TS; }
+__host__ __device__ inline int ntiles(int N) { return (N + NTILE - 1) / NTILE; }
+// columns of one N tile as laid out in shared memory (whole float4 groups)
+__host__ __device__ inline int ntw(int N) { return n4(N < NTILE ? N : NTILE); }
 
 // ---- shared memory, in floats ---------------------------------------------
-size_t cb_smem(int N) { return 2 * (size_t)TS * (n4(N) + 4); }
+size_t cb_smem(int N) { return 2 * (size_t)TS * (ntw(N) + 4); }
 size_t state_smem(int Q) {
   return 3 * (size_t)Q + 8 + 2 * (size_t)TK * (TS + 16 * NI);
 }
 size_t scan_smem(int N, int Q) {
-  const size_t a = (size_t)TS * (n4(N) + 4) + (size_t)n4(N) * TS;
+  const size_t a = (size_t)TS * (ntw(N) + 4) + (size_t)ntw(N) * TS;
   const size_t b = 2 * (size_t)TS * TS + (size_t)TS * LDW;
   return 2 * (size_t)Q + (a > b ? a : b);
 }
@@ -197,11 +206,13 @@ __device__ void block_cumsum(float* cum, const float* dt, float a, int Q,
 // ---- 1. C.B^T -------------------------------------------------------------
 // Block (pair, chunk, b * G + g); pair enumerates the tiles (st, tt) with
 // tt <= st.  Thread (ty, tx) owns rows s = 4 ty + i and columns t = tx + 16 j.
+// The sum over n runs over the N tiles, one load of C and B rows each.
+template <bool MULTI>
 __global__ void __launch_bounds__(NT)
 ssd_cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
               float* __restrict__ cb, Dims d) {
   const int S = d.S, N = d.N, G = d.G, Q = d.Q;
-  const int ldn = n4(N) + 4;
+  const int ldn = (MULTI ? NTILE : n4(N)) + 4;
   extern __shared__ float4 smem4[];
   float* sC = reinterpret_cast<float*>(smem4);   // (TS, ldn)
   float* sB = sC + TS * ldn;                     // (TS, ldn)
@@ -214,38 +225,42 @@ ssd_cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
   const long long brow = (long long)G * N;
   const long long base = ((long long)b * S + c0) * brow + (long long)g * N;
   const int s0 = st * TS, t0 = tt * TS;
-  load_tile(sC, ldn, TS, n4(N) / 4, cm + base + s0 * brow, brow,
-            min(Q - s0, S - c0 - s0), N, d.vec_bc);
-  load_tile(sB, ldn, TS, n4(N) / 4, bm + base + t0 * brow, brow,
-            min(Q - t0, S - c0 - t0), N, d.vec_bc);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
 
   float sc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-  for (int n = 0; n < n4(N); n += 4) {
-    float4 cv[4], bv[4];
+  for (int n0 = 0; n0 < (MULTI ? N : 1); n0 += NTILE) {
+    const int nw = MULTI ? min(NTILE, N - n0) : N;
+    if (n0 > 0) __syncthreads();    // the last tile's reads are done
+    load_tile(sC, ldn, TS, n4(nw) / 4, cm + base + n0 + s0 * brow, brow,
+              min(Q - s0, S - c0 - s0), nw, d.vec_bc);
+    load_tile(sB, ldn, TS, n4(nw) / 4, bm + base + n0 + t0 * brow, brow,
+              min(Q - t0, S - c0 - t0), nw, d.vec_bc);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int n = 0; n < n4(nw); n += 4) {
+      float4 cv[4], bv[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      cv[i] = *reinterpret_cast<const float4*>(&sC[(ty * 4 + i) * ldn + n]);
+      for (int i = 0; i < 4; ++i)
+        cv[i] = *reinterpret_cast<const float4*>(&sC[(ty * 4 + i) * ldn + n]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(&sB[(tx + 16 * j) * ldn + n]);
+      for (int j = 0; j < 4; ++j)
+        bv[j] = *reinterpret_cast<const float4*>(&sB[(tx + 16 * j) * ldn + n]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float s = sc[i][j];
-        s = fmaf(cv[i].x, bv[j].x, s);
-        s = fmaf(cv[i].y, bv[j].y, s);
-        s = fmaf(cv[i].z, bv[j].z, s);
-        s = fmaf(cv[i].w, bv[j].w, s);
-        sc[i][j] = s;
-      }
+        for (int j = 0; j < 4; ++j) {
+          float s = sc[i][j];
+          s = fmaf(cv[i].x, bv[j].x, s);
+          s = fmaf(cv[i].y, bv[j].y, s);
+          s = fmaf(cv[i].z, bv[j].z, s);
+          s = fmaf(cv[i].w, bv[j].w, s);
+          sc[i][j] = s;
+        }
+    }
   }
   float* out = cb + (((long long)b * G + g) * d.nc + ci) * Q * Q;
 #pragma unroll
@@ -261,9 +276,11 @@ ssd_cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
 }
 
 // ---- 2. chunk cumsum and chunk state --------------------------------------
-// Block (chunk, h * ptiles + pt, b).  The state tile is (n, p): thread
-// (ty, tx) owns n = NI ty + i and p = p0 + 4 tx + j; columns of b past N load
-// as zeros.
+// Block (chunk, h * ptiles + pt, b * ntiles + nt).  The state tile is (n, p)
+// of N tile nt: thread (ty, tx) owns n = n0 + NI ty + i and p = p0 + 4 tx + j;
+// columns of b past N load as zeros.  Every N tile takes the cumsum; the
+// first writes it.
+template <bool MULTI>
 __global__ void __launch_bounds__(NT)
 ssd_chunk_state_kernel(const float* __restrict__ x,
                        const float* __restrict__ dt,
@@ -280,14 +297,18 @@ ssd_chunk_state_kernel(const float* __restrict__ x,
   float* sW = sCum + Q;                          // (Q,)
   float* sWarp = sW + Q;                         // (8,)
 
-  const int ci = blockIdx.x, c0 = ci * Q, b = blockIdx.z;
+  const int ci = blockIdx.x, c0 = ci * Q;
+  const int nn = MULTI ? ntiles(N) : 1;
+  const int b = blockIdx.z / nn, nt = blockIdx.z % nn;
+  const int n0 = nt * NTILE, nw = MULTI ? min(NTILE, N - n0) : N;
   const int np = ptiles(P), h = blockIdx.y / np, pt = blockIdx.y % np;
   const int p0 = pt * TS, pw = min(TS, P - p0);
   const int g = h / (H / G);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const long long xrow = (long long)H * P, brow = (long long)G * N;
   const float* xb = x + ((long long)b * S + c0) * xrow + (long long)h * P + p0;
-  const float* bb = bm + ((long long)b * S + c0) * brow + (long long)g * N;
+  const float* bb = bm + ((long long)b * S + c0) * brow + (long long)g * N +
+                    n0;
   const int ntk = (Q + TK - 1) / TK;
 
   const auto issue = [&](int k) {
@@ -295,7 +316,7 @@ ssd_chunk_state_kernel(const float* __restrict__ x,
     load_tile(sX + (k & 1) * TK * TS, TS, TK, TS / 4, xb + t0 * xrow, xrow,
               valid, pw, d.vec_x);
     load_tile(sB + (k & 1) * TK * LDB, LDB, TK, LDB / 4, bb + t0 * brow, brow,
-              valid, N, d.vec_bc);
+              valid, nw, d.vec_bc);
     cp_async_commit();
   };
   issue(0);                  // in flight during the scan
@@ -308,7 +329,7 @@ ssd_chunk_state_kernel(const float* __restrict__ x,
   const float cum_last = sCum[Q - 1];
   float* cumc = cum + ((long long)b * d.nc + ci) * Q * H + h;
   for (int t = tid; t < Q; t += NT) {
-    if (pt == 0) cumc[(long long)t * H] = sCum[t];
+    if (pt == 0 && nt == 0) cumc[(long long)t * H] = sCum[t];
     sW[t] = sDt[t] * expf(cum_last - sCum[t]);
   }
 
@@ -348,11 +369,12 @@ ssd_chunk_state_kernel(const float* __restrict__ x,
     __syncthreads();          // before the copy after next overwrites
   }
 
-  float* out = states + (((long long)b * d.nc + ci) * H + h) * N * P + p0;
+  float* out = states + (((long long)b * d.nc + ci) * H + h) * N * P +
+               (long long)n0 * P + p0;
 #pragma unroll
   for (int i = 0; i < NI; ++i) {
     const int n = ty * NI + i;
-    if (n < N) store4(out + (long long)n * P, 4 * tx, pw, acc[i], d.vec_x);
+    if (n < nw) store4(out + (long long)n * P, 4 * tx, pw, acc[i], d.vec_x);
   }
 }
 
@@ -389,59 +411,13 @@ ssd_state_passing_kernel(const float* __restrict__ src,
   state[(((long long)b * H + h) * P + p) * N + n] = carry;
 }
 
-// ---- 4. chunk scan --------------------------------------------------------
-// Block (rev(st) * ptiles + pt, chunk, b * H + h).  Thread (ty, tx) owns rows
-// s = s0 + 4 ty + i and columns p = p0 + 4 tx + j.
-__global__ void __launch_bounds__(NT)
-ssd_chunk_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                      const float* __restrict__ cm,
-                      const float* __restrict__ cb,
-                      const float* __restrict__ cum,
-                      const float* __restrict__ h_in, float* __restrict__ y,
-                      Dims d) {
-  const int S = d.S, H = d.H, P = d.P, N = d.N, G = d.G, Q = d.Q;
-  const int ldn = n4(N) + 4;
-  extern __shared__ float4 smem4[];
-  float* sU = reinterpret_cast<float*>(smem4);   // union of the two phases:
-  float* sC = sU;                                //   (TS, ldn) C rows
-  float* sH = sC + TS * ldn;                     //   (n4(N), TS) h_in^T
-  float* sX = sU;                                //   2 x (TS, TS) x rows
-  float* sW = sX + 2 * TS * TS;                  //   (TS, LDW) scores
-  const int u_len = max(TS * ldn + n4(N) * TS, 2 * TS * TS + TS * LDW);
-  float* sDt = sU + u_len;                       // (Q,)
-  float* sCum = sDt + Q;                         // (Q,)
-
-  const int np = ptiles(P), nq = qtiles(Q);
-  const int st = nq - 1 - blockIdx.x / np, pt = blockIdx.x % np;
-  const int ci = blockIdx.y, c0 = ci * Q;
-  const int b = blockIdx.z / H, h = blockIdx.z % H, g = h / (H / G);
-  const int s0 = st * TS, p0 = pt * TS, pw = min(TS, P - p0);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long xrow = (long long)H * P, brow = (long long)G * N;
-  const float* xb = x + ((long long)b * S + c0) * xrow + (long long)h * P + p0;
-
-  load_tile(sC, ldn, TS, n4(N) / 4,
-            cm + ((long long)b * S + c0 + s0) * brow + (long long)g * N, brow,
-            min(Q - s0, S - c0 - s0), N, d.vec_bc);
-  load_tile(sH, TS, n4(N), TS / 4,
-            h_in + (((long long)b * d.nc + ci) * H + h) * N * P + p0, P, N,
-            pw, d.vec_x);
-  cp_async_commit();
-  const float* cumc = cum + ((long long)b * d.nc + ci) * Q * H + h;
-  for (int t = tid; t < Q; t += NT) {
-    sDt[t] = c0 + t < S ? dt[((long long)b * S + c0 + t) * H + h] : 0.f;
-    sCum[t] = cumc[(long long)t * H];
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // inter-chunk: exp(cum_s) C_s . h_in
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int n = 0; n < n4(N); n += 4) {
+// acc[i][j] += sum_n C[4 ty + i, n] h_in^T[n, 4 tx + j] over the n < nn
+// columns of one N tile in shared memory (C rows of stride ldn, h_in^T rows
+// of TS).
+__device__ __forceinline__ void c_dot_h(float (&acc)[4][4], const float* sC,
+                                        const float* sH, int ldn, int nn,
+                                        int tx, int ty) {
+  for (int n = 0; n < nn; n += 4) {
     float4 cv[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -455,6 +431,86 @@ ssd_chunk_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       const float cvi[4] = {cv[i].x, cv[i].y, cv[i].z, cv[i].w};
 #pragma unroll
       for (int k = 0; k < 4; ++k) fma4(acc[i], cvi[k], hv[k]);
+    }
+  }
+}
+
+// ---- 4. chunk scan --------------------------------------------------------
+// Block (rev(st) * ptiles + pt, chunk, b * H + h).  Thread (ty, tx) owns rows
+// s = s0 + 4 ty + i and columns p = p0 + 4 tx + j.  C.h_in sums over the N
+// tiles, one load of C rows and h_in each.
+template <bool MULTI>
+__global__ void __launch_bounds__(NT)
+ssd_chunk_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                      const float* __restrict__ cm,
+                      const float* __restrict__ cb,
+                      const float* __restrict__ cum,
+                      const float* __restrict__ h_in, float* __restrict__ y,
+                      Dims d) {
+  const int S = d.S, H = d.H, P = d.P, N = d.N, G = d.G, Q = d.Q;
+  const int cols = MULTI ? NTILE : n4(N);        // of one N tile
+  const int ldn = cols + 4;
+  extern __shared__ float4 smem4[];
+  float* sU = reinterpret_cast<float*>(smem4);   // union of the two phases:
+  float* sC = sU;                                //   (TS, ldn) C rows
+  float* sH = sC + TS * ldn;                     //   (cols, TS) h_in^T
+  float* sX = sU;                                //   2 x (TS, TS) x rows
+  float* sW = sX + 2 * TS * TS;                  //   (TS, LDW) scores
+  const int u_len = max(TS * ldn + cols * TS, 2 * TS * TS + TS * LDW);
+  float* sDt = sU + u_len;                       // (Q,)
+  float* sCum = sDt + Q;                         // (Q,)
+
+  const int np = ptiles(P), nq = qtiles(Q);
+  const int st = nq - 1 - blockIdx.x / np, pt = blockIdx.x % np;
+  const int ci = blockIdx.y, c0 = ci * Q;
+  const int b = blockIdx.z / H, h = blockIdx.z % H, g = h / (H / G);
+  const int s0 = st * TS, p0 = pt * TS, pw = min(TS, P - p0);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const long long xrow = (long long)H * P, brow = (long long)G * N;
+  const float* xb = x + ((long long)b * S + c0) * xrow + (long long)h * P + p0;
+
+  // C rows and h_in^T of the first N tile, in flight while dt and cum load.
+  // Their addresses are computed at each load: pointers kept from here to
+  // the tile loop take the one-tile kernel from 79 registers to 103 (two
+  // blocks an SM, not three) and the mamba2-370m scan from 0.193 to 0.218 ms.
+  const int nw0 = MULTI ? NTILE : N;
+  load_tile(sC, ldn, TS, n4(nw0) / 4,
+            cm + ((long long)b * S + c0 + s0) * brow + (long long)g * N, brow,
+            min(Q - s0, S - c0 - s0), nw0, d.vec_bc);
+  load_tile(sH, TS, n4(nw0), TS / 4,
+            h_in + (((long long)b * d.nc + ci) * H + h) * N * P + p0, P, nw0,
+            pw, d.vec_x);
+  cp_async_commit();
+  const float* cumc = cum + ((long long)b * d.nc + ci) * Q * H + h;
+  for (int t = tid; t < Q; t += NT) {
+    sDt[t] = c0 + t < S ? dt[((long long)b * S + c0 + t) * H + h] : 0.f;
+    sCum[t] = cumc[(long long)t * H];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // inter-chunk: exp(cum_s) C_s . h_in, summed over the N tiles
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  c_dot_h(acc, sC, sH, ldn, n4(nw0), tx, ty);
+  if constexpr (MULTI) {
+    for (int n0 = NTILE; n0 < N; n0 += NTILE) {
+      const int nw = min(NTILE, N - n0);
+      __syncthreads();        // the last tile's reads are done
+      load_tile(sC, ldn, TS, n4(nw) / 4,
+                cm + ((long long)b * S + c0 + s0) * brow + (long long)g * N +
+                    n0, brow,
+                min(Q - s0, S - c0 - s0), nw, d.vec_bc);
+      load_tile(sH, TS, n4(nw), TS / 4,
+                h_in + (((long long)b * d.nc + ci) * H + h) * N * P + p0 +
+                    (long long)n0 * P, P, nw, pw, d.vec_x);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      c_dot_h(acc, sC, sH, ldn, n4(nw), tx, ty);
     }
   }
 #pragma unroll
@@ -534,6 +590,41 @@ bool aligned(const float* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
+// The four kernels on `stream`, one tile of N or several.
+template <bool MULTI>
+int launch(const float* x, const float* dt, const float* a_log,
+           const float* b, const float* c, float* cb, float* cum,
+           float* cstate, float* h_in, float* y, float* state, const Dims& d,
+           int B, int nq, int np, cudaStream_t stream) {
+  const int H = d.H, P = d.P, N = d.N, G = d.G, Q = d.Q;
+
+  const int nn = MULTI ? ntiles(N) : 1;
+
+  cudaError_t err = set_smem(ssd_cb_kernel<MULTI>, cb_smem(N));
+  if (err != cudaSuccess) return (int)err;
+  ssd_cb_kernel<MULTI><<<dim3(nq * (nq + 1) / 2, d.nc, B * G), NT,
+                         cb_smem(N) * sizeof(float), stream>>>(b, c, cb, d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  err = set_smem(ssd_chunk_state_kernel<MULTI>, state_smem(Q));
+  if (err != cudaSuccess) return (int)err;
+  ssd_chunk_state_kernel<MULTI><<<dim3(d.nc, H * np, B * nn), NT,
+                                  state_smem(Q) * sizeof(float), stream>>>(
+      x, dt, a_log, b, cum, cstate, d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  ssd_state_passing_kernel<<<dim3((N * P + NT - 1) / NT, H, B), NT, 0,
+                             stream>>>(cstate, h_in, cum, state, d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  err = set_smem(ssd_chunk_scan_kernel<MULTI>, scan_smem(N, Q));
+  if (err != cudaSuccess) return (int)err;
+  ssd_chunk_scan_kernel<MULTI><<<dim3(nq * np, d.nc, B * H), NT,
+                                 scan_smem(N, Q) * sizeof(float), stream>>>(
+      x, dt, c, cb, cum, h_in, y, d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Shared memory of the largest of the kernels, for the wrapper's check.
@@ -555,7 +646,7 @@ extern "C" int ssd_scan_fwd(const float* x, const float* dt,
                             float* state, int B, int S, int H, int P, int G,
                             int N, int Q, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G || P <= 0 || N <= 0 ||
-      N > 128 || Q <= 0) {
+      Q <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const Dims d{S, H, P, N, G, Q, (S + Q - 1) / Q,
@@ -563,28 +654,8 @@ extern "C" int ssd_scan_fwd(const float* x, const float* dt,
                P % 4 == 0 && aligned(x) && aligned(h_in) && aligned(y) &&
                    aligned(cstate)};
   const int nq = qtiles(Q), np = ptiles(P);
-
-  cudaError_t err = set_smem(ssd_cb_kernel, cb_smem(N));
-  if (err != cudaSuccess) return (int)err;
-  ssd_cb_kernel<<<dim3(nq * (nq + 1) / 2, d.nc, B * G), NT,
-                  cb_smem(N) * sizeof(float), stream>>>(b, c, cb, d);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  if ((err = set_smem(ssd_chunk_state_kernel, state_smem(Q))) != cudaSuccess)
-    return (int)err;
-  ssd_chunk_state_kernel<<<dim3(d.nc, H * np, B), NT,
-                           state_smem(Q) * sizeof(float), stream>>>(
-      x, dt, a_log, b, cum, cstate, d);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  ssd_state_passing_kernel<<<dim3((N * P + NT - 1) / NT, H, B), NT, 0,
-                             stream>>>(cstate, h_in, cum, state, d);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  if ((err = set_smem(ssd_chunk_scan_kernel, scan_smem(N, Q))) != cudaSuccess)
-    return (int)err;
-  ssd_chunk_scan_kernel<<<dim3(nq * np, d.nc, B * H), NT,
-                          scan_smem(N, Q) * sizeof(float), stream>>>(
-      x, dt, c, cb, cum, h_in, y, d);
-  return (int)cudaGetLastError();
+  return N > NTILE ? launch<true>(x, dt, a_log, b, c, cb, cum, cstate, h_in,
+                                  y, state, d, B, nq, np, stream)
+                   : launch<false>(x, dt, a_log, b, c, cb, cum, cstate, h_in,
+                                   y, state, d, B, nq, np, stream);
 }

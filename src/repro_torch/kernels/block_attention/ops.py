@@ -143,8 +143,6 @@ def block_attention(q: Tensor, k: Tensor, v: Tensor, heads: int = 1) -> Tensor:
     if not (q.dtype == k.dtype == v.dtype and q.dtype in _DTYPES):
         raise TypeError(f"block_attention: kernel takes float32 or bfloat16 "
                         f"q, k, v, not {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("block_attention: kernel takes contiguous q, k, v")
     *lead, n, dk = q.shape
     dv = v.shape[-1]
     if k.shape != q.shape or v.shape[:-1] != q.shape[:-1]:
@@ -153,7 +151,10 @@ def block_attention(q: Tensor, k: Tensor, v: Tensor, heads: int = 1) -> Tensor:
     if heads < 1 or dk % heads or dv % heads:
         raise ValueError(f"block_attention: heads={heads} must divide "
                          f"dk={dk} and dv={dv}")
-    return _BlockAttention.apply(q, k, v, heads)
+    # views are copied, as the TPU wrapper takes any array; a contiguous
+    # input that is not 16-byte aligned takes the general kernel
+    return _BlockAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), heads)
 
 
 class _BlockAttention(torch.autograd.Function):

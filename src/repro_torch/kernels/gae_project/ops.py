@@ -5,7 +5,11 @@ Replaces the TPU kernel ``_gae_project_kernel`` (``gae_project_fwd``,
 ``csrc/gae_project.cu``; its note says what bounds it and how.
 
 ``gae_project`` takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors; ``launches`` counts kernel launches only.
+kernel for CUDA tensors; ``launches`` counts kernel launches only.  Like the
+TPU kernel, which casts its tiles to fp32 in its body
+(``src/repro/kernels/gae_project/kernel.py:33-35``), it takes bfloat16
+residuals and basis, cast to fp32 before the launch, and its outputs stay
+fp32; inputs that are not contiguous are copied first.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from repro_torch.kernels import build
 Tensor = torch.Tensor
 
 launches = build.LaunchCounter()
+
+_DTYPES = {torch.float32, torch.bfloat16}
 
 
 def gae_project_plain(residuals: Tensor, basis: Tensor) -> tuple[Tensor, Tensor]:
@@ -40,14 +46,15 @@ def gae_project(residuals: Tensor, basis: Tensor) -> tuple[Tensor, Tensor]:
         raise ValueError(f"gae_project: residuals on {residuals.device}, "
                          f"basis on {basis.device}; the kernel takes one "
                          f"CUDA device")
-    if residuals.dtype != torch.float32 or basis.dtype != torch.float32:
-        raise TypeError("gae_project: kernel takes float32 inputs")
+    if not {residuals.dtype, basis.dtype} <= _DTYPES:
+        raise TypeError(f"gae_project: kernel takes float32 or bfloat16 "
+                        f"inputs, got {residuals.dtype}, {basis.dtype}")
     if residuals.dim() != 2 or basis.dim() != 2 \
             or residuals.shape[1] != basis.shape[0]:
         raise ValueError(f"gae_project: shapes {tuple(residuals.shape)} @ "
                          f"{tuple(basis.shape)} do not chain")
-    if not (residuals.is_contiguous() and basis.is_contiguous()):
-        raise ValueError("gae_project: kernel takes contiguous inputs")
+    residuals, basis = (t.to(torch.float32).contiguous()
+                        for t in (residuals, basis))
     n, d = residuals.shape
     dout = basis.shape[1]
     c = torch.empty(n, dout, dtype=torch.float32, device=residuals.device)

@@ -6,7 +6,9 @@ Replaces the TPU kernel ``_quantize_kernel`` (``quantize_fused_fwd``,
 ``csrc/quantize.cu``; its note says what bounds it and how it is built.
 
 ``quantize_fused`` takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors; ``launches`` counts kernel launches only.
+kernel for CUDA tensors; ``launches`` counts kernel launches only.  Like the
+TPU wrapper it takes any tensor: one that is not contiguous is copied first
+(the kernel reads a flat array; it needs no alignment).
 """
 from __future__ import annotations
 
@@ -52,8 +54,7 @@ def quantize_fused(x: Tensor, bin_size) -> tuple[Tensor, Tensor, Tensor]:
     if x.dtype not in _ENTRY:
         raise TypeError(f"quantize_fused: kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("quantize_fused: kernel takes a contiguous tensor")
+    x = x.contiguous()
     q = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     deq = torch.empty_like(x)
     err2 = torch.empty(x.shape, dtype=torch.float32, device=x.device)

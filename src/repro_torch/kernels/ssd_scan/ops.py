@@ -17,6 +17,8 @@ function each: ``chunk_cumsum``, ``chunk_state``, ``state_passing`` and
 (C.B^T, the first product of ``chunk_scan``), ``ssd_chunk_state_kernel``
 (``chunk_cumsum`` and ``chunk_state``), ``ssd_state_passing_kernel`` and
 ``ssd_chunk_scan_kernel``; ``ssd_phases`` returns what each left behind.
+Like the TPU kernel it takes any state size N (the CUDA kernels cut N in
+tiles of 128) and copies inputs that are not contiguous.
 """
 from __future__ import annotations
 
@@ -32,7 +34,6 @@ Tensor = torch.Tensor
 
 launches = build.LaunchCounter()
 
-MAX_N = 128                     # the state size the kernel is built for
 _MAX_SMEM = 232448              # bytes of shared memory a block may use on Hopper
 
 
@@ -170,8 +171,7 @@ def ssd_phases(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor, c: Tensor, *,
     if any(t.dtype != torch.float32 for t in ins):
         raise TypeError(f"ssd: kernel takes float32 inputs, got "
                         f"{[t.dtype for t in ins]}")
-    if not all(t.is_contiguous() for t in ins):
-        raise ValueError("ssd: kernel takes contiguous inputs")
+    x, dt, a_log, b, c = (t.contiguous() for t in ins)
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     if (dt.shape != (bsz, s, h) or a_log.shape != (h,) or g < 1 or h % g
@@ -179,8 +179,8 @@ def ssd_phases(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor, c: Tensor, *,
         raise ValueError(f"ssd: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
                          f"a_log {tuple(a_log.shape)}, b {tuple(b.shape)}, "
                          f"c {tuple(c.shape)} disagree")
-    if not 0 < n <= MAX_N:
-        raise ValueError(f"ssd: kernel takes N <= {MAX_N}, got N={n}")
+    if n < 1:
+        raise ValueError(f"ssd: state size N={n} < 1")
     if chunk < 1:
         raise ValueError(f"ssd: chunk {chunk} < 1")
     q = max(1, min(chunk, s))

@@ -4,10 +4,16 @@ the compressed-KV option (runtime/kvcache), on the card by default.
   python -m repro_torch.launch.serve --arch qwen2-1.5b
   python -m repro_torch.launch.serve --arch mamba2-370m --reduced --device cpu
   python -m repro_torch.launch.serve --arch recurrentgemma-9b --reduced --device cpu
+  python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --reduced --device cpu
+
+The VLM (llama-3.2-vision-11b) needs each request's patch embeddings, which
+this launcher, as the JAX package's, does not make: it exits 2 for the vlm
+family.  ``ServeEngine`` with ``Request.frontend`` serves it.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 from typing import Optional, Sequence
 
@@ -38,6 +44,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if cfg.family == "vlm":
+        print(f"{args.arch}: the vlm family needs a frontend with each "
+              f"request's vision_embeds, which this launcher does not make; "
+              f"serve it through ServeEngine with Request.frontend",
+              file=sys.stderr)
+        sys.exit(2)
     if args.reduced:
         cfg = reduced_config(cfg)
     run = RunConfig()

@@ -2,9 +2,16 @@
 PyTorch.
 
 Supports grouped-query / multi-query heads, RoPE, QKV bias (qwen1.5/qwen2),
-qk-norm (qwen3), and a ring-buffer KV cache for sliding-window decode.
-Cross-attention waits for the VLM and whisper slices (ROADMAP.md).  There is
-one device, so the JAX package's sharding constraints are dropped.
+qk-norm (qwen3), a ring-buffer KV cache for sliding-window decode, and
+cross-attention (llama-3.2-vision): K/V from another sequence, unrotated,
+every key visible.  There is one device, so the JAX package's sharding
+constraints are dropped.
+
+Every prefill path goes through the flash-attention wrapper, cross-attention
+too (non-causal, T != S): the JAX package sends cross-attention to its
+einsum path and never to the kernel (``src/repro/models/attention.py:98``);
+the port's kernel takes it, and its plain version is that einsum path with
+no mask.
 
 Weight layout, as in the JAX package:
     wq: (d, H, hd)   wk/wv: (d, KV, hd)   wo: (H, hd, d)
@@ -42,12 +49,12 @@ def attn_init(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
     return p
 
 
-def _project_qkv(params: dict, x: Tensor, positions: Tensor, theta: float,
-                 rope: bool) -> tuple[Tensor, Tensor, Tensor]:
+def _project_qkv(params: dict, x: Tensor, x_kv: Tensor, positions: Tensor,
+                 theta: float, rope: bool) -> tuple[Tensor, Tensor, Tensor]:
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x_kv, params["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x_kv, params["wv"].to(dt))
     if "bq" in params:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
@@ -64,13 +71,16 @@ def _project_qkv(params: dict, x: Tensor, positions: Tensor, theta: float,
 def full_attention(params: dict, x: Tensor, *, positions: Tensor,
                    theta: float = 1e4, causal: bool = True, window: int = 0,
                    rope: bool = True, x_kv: Optional[Tensor] = None) -> Tensor:
-    """Prefill path, self-attention only. x: (B,S,d).  Always goes through
-    the flash-attention wrapper: the kernel on CUDA, its plain version on
-    the CPU."""
-    if x_kv is not None:
-        raise NotImplementedError("cross-attention is not ported yet "
-                                  "(VLM/whisper slices, ROADMAP.md)")
-    q, k, v = _project_qkv(params, x, positions, theta, rope)
+    """Prefill path. x: (B,S,d).  ``x_kv`` (B,T,d) makes it cross-attention:
+    positions apply to q only, k/v are unrotated, and every query sees every
+    key (``causal`` and ``window`` are not read).  Always goes through the
+    flash-attention wrapper: the kernel on CUDA, its plain version on the
+    CPU."""
+    cross = x_kv is not None
+    q, k, v = _project_qkv(params, x, x_kv if cross else x, positions, theta,
+                           rope and not cross)
+    if cross:
+        causal, window = False, 0
     ctx = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
     return torch.einsum("bshk,hkd->bsd", ctx, params["wo"].to(x.dtype))
 
@@ -100,16 +110,23 @@ class KVCache:
 
 
 def decode_attention(params: dict, x: Tensor, cache: KVCache, *,
-                     theta: float = 1e4, rope: bool = True
+                     theta: float = 1e4, rope: bool = True,
+                     kv_cross: Optional[tuple[Tensor, Tensor]] = None
                      ) -> tuple[Tensor, KVCache]:
     """One-token decode. x: (B,1,d).  The new K/V are written into the
     cache's slot in place (``index_copy_``), so the returned cache shares
-    its tensors with ``cache``; only ``pos`` advances."""
+    its tensors with ``cache``; only ``pos`` advances.  With ``kv_cross``
+    (precomputed K/V of another sequence) it attends those instead, by the
+    plain grouped einsum, and returns ``cache`` untouched."""
     dt = x.dtype
     pos = cache.pos
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
-    q, k_new, v_new = _project_qkv(params, x, positions, theta, rope)
+    if kv_cross is not None:
+        q, _, _ = _project_qkv(params, x, x, positions, theta, rope=False)
+        ctx = fa_ops.grouped_attention(q, *kv_cross, None)
+        return torch.einsum("bshk,hkd->bsd", ctx, params["wo"].to(dt)), cache
+    q, k_new, v_new = _project_qkv(params, x, x, positions, theta, rope)
     slot = pos % cache.window if cache.window else pos
     # made on the device: a host-to-device copy would wait for the stream
     index = torch.full((1,), slot, dtype=torch.long, device=x.device)
@@ -128,7 +145,7 @@ def prefill_cache(params: dict, x: Tensor, *, positions: Tensor, theta: float,
     """Build a cache from a full prompt (keys stored rotated).  With a
     window shorter than the prompt, the last ``window`` keys fill the ring:
     the key of absolute time t lives at slot t % window."""
-    _, k, v = _project_qkv(params, x, positions, theta, rope)
+    _, k, v = _project_qkv(params, x, x, positions, theta, rope)
     b, s = x.shape[0], x.shape[1]
     cache = KVCache.zeros(b, max_len, k.shape[2], k.shape[3], k.dtype,
                           x.device, window)

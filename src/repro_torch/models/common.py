@@ -202,16 +202,19 @@ def chunked_ce_loss(x: Tensor, unembed_w: Tensor, labels: Tensor, vocab: int,
 
 def train_loss(forward: Callable, params: dict, cfg, run, batch: dict,
                head_w: Tensor) -> Tensor:
-    """Mean next-token CE of ``batch`` ({"tokens", "labels"}, (B, S) ints)
-    through the model's ``forward``; with ``run.ce_chunk`` the LM head
-    (``head_w``, (D, V_padded)) and the CE run chunked on the final hidden
-    states."""
+    """Mean next-token CE of ``batch`` ({"tokens", "labels"}, (B, S) ints,
+    and for the VLM family "vision_embeds") through the model's ``forward``;
+    with ``run.ce_chunk`` the LM head (``head_w``, (D, V_padded)) and the CE
+    run chunked on the final hidden states."""
+    extra = ({"vision_embeds": batch["vision_embeds"]}
+             if "vision_embeds" in batch else {})
     if run.ce_chunk:
-        x = forward(params, cfg, run, batch["tokens"], return_hidden=True)
+        x = forward(params, cfg, run, batch["tokens"], return_hidden=True,
+                    **extra)
         pv = cfg.padded_vocab(run.tp)
         return chunked_ce_loss(x, head_w, batch["labels"], cfg.vocab,
                                run.ce_chunk,
                                logit_mask_from=cfg.vocab if pv != cfg.vocab
                                else 0)
-    logits = forward(params, cfg, run, batch["tokens"])
+    logits = forward(params, cfg, run, batch["tokens"], **extra)
     return cross_entropy_loss(logits, batch["labels"], cfg.vocab)

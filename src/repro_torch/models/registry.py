@@ -1,8 +1,9 @@
 """Arch family -> model functions, tiny configs for CPU tests, and weights
 carried across from the JAX package.
 
-The port has the dense (qwen), SSM (mamba2) and hybrid (recurrentgemma)
-families; the others wait for later slices (ROADMAP.md).
+The port has the dense (qwen, deepseek), MoE (granite, llama4-scout), VLM
+(llama-3.2-vision), SSM (mamba2) and hybrid (recurrentgemma) families; the
+audio family (whisper) waits for a later slice (ROADMAP.md).
 ``params_from_jax`` and ``train_state_from_jax`` carry the JAX package's
 params and training state across as numpy.
 """
@@ -21,14 +22,14 @@ from repro_torch.core.exec import resolve_device
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     init_params: Callable        # (cfg, run, generator, device) -> params
-    forward: Callable            # (params, cfg, run, tokens) -> logits
+    forward: Callable            # (params, cfg, run, tokens, ...) -> logits
     train_loss: Callable         # (params, cfg, run, batch) -> scalar
-    init_decode_state: Callable  # (params, cfg, run, batch, max_len) -> state
+    init_decode_state: Callable  # (params, cfg, run, batch, max_len, ...) -> state
     decode_step: Callable        # (params, cfg, run, token, state) -> (logits, state)
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer as m
     elif cfg.family == "ssm":
         from repro_torch.models import ssd as m
@@ -98,9 +99,13 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         n_layers=max(2, min(4, cfg.n_layers)),
         d_model=64, n_heads=4, n_kv_heads=min(max(1, cfg.n_kv_heads // 4), 4),
         d_ff=128 if cfg.d_ff else 0, vocab=512, head_dim=16, max_seq=512)
+    if cfg.family == "moe":
+        changes.update(n_experts=4, top_k=min(cfg.top_k, 2), d_ff=64)
     if cfg.family == "hybrid":
         changes.update(n_layers=5, attn_period=3, window=16, lru_width=64)
     if cfg.family == "ssm":
         changes.update(ssm_state=16, ssm_headdim=16, ssm_chunk=16,
                        n_heads=1, n_kv_heads=1)
+    if cfg.family == "vlm":
+        changes.update(cross_period=5, n_layers=5, n_vision_tokens=16)
     return dataclasses.replace(cfg, **changes)

@@ -10,7 +10,9 @@ The engine drives a registered arch through its ``decode_step``:
   * **compressed KV** (``kv_tau``): after prefill, each slot's KV cache goes
     through the bounded quantizer (``runtime.kvcache``, the quantize kernel
     on CUDA) with a per-token l2 guarantee, and decode attends the
-    compressed cache.
+    compressed cache;
+  * **modality frontends**: a request's ``frontend`` payloads (the VLM's
+    ``{"vision_embeds": (N_vision, D)}``) go to ``init_decode_state``.
 
 The engine runs on ``device``, the card unless the caller passes
 ``device="cpu"``; the params must live there.
@@ -37,6 +39,9 @@ class Request:
     rid: int
     prompt: np.ndarray             # (S,) int32
     max_new_tokens: int
+    # modality frontend payloads (stubs, as in the JAX package): VLM
+    # requests carry precomputed patch embeddings
+    frontend: Optional[dict] = None   # e.g. {"vision_embeds": (N, d)}
 
 
 @dataclasses.dataclass
@@ -72,26 +77,29 @@ class ServeEngine:
             logits = out[:, 0]
         return state, logits
 
-    def _compress_kv(self, state):
+    def _compress_kv(self, node):
         """Bounded KV quantization of every ``KVCache`` in the state (the
-        dense family's stacked caches, the hybrid's attention-layer ring
-        buffers), found through its named tuples and dicts; a state with
-        none (an SSM's) is returned as it is."""
-        def visit(node):
-            if isinstance(node, attn_mod.KVCache):
-                return dataclasses.replace(
-                    node, k=quantize_kv_bounded(node.k, self.kv_tau),
-                    v=quantize_kv_bounded(node.v, self.kv_tau))
-            if isinstance(node, dict):
-                new = {key: visit(v) for key, v in node.items()}
-                same = all(new[key] is node[key] for key in node)
-            elif isinstance(node, tuple) and hasattr(node, "_fields"):
-                new = type(node)(*(visit(v) for v in node))
-                same = all(a is b for a, b in zip(new, node))
-            else:
-                return node
-            return node if same else new
-        return visit(state)
+        dense family's stacked caches, the VLM's self-layer caches, the
+        hybrid's attention-layer ring buffers), found through its named
+        tuples and dicts; a state with none (an SSM's) is returned as it is.
+        The VLM's cross K/V (``vision_kv``, a plain tuple) stay raw, as the
+        JAX engine visits only ``KVCache`` nodes.  It recurses as a method:
+        a nested recursive function would make a reference cycle through
+        ``self`` that keeps the engine and its params alive until the
+        cyclic garbage collector runs."""
+        if isinstance(node, attn_mod.KVCache):
+            return dataclasses.replace(
+                node, k=quantize_kv_bounded(node.k, self.kv_tau),
+                v=quantize_kv_bounded(node.v, self.kv_tau))
+        if isinstance(node, dict):
+            new = {key: self._compress_kv(v) for key, v in node.items()}
+            same = all(new[key] is node[key] for key in node)
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            new = type(node)(*(self._compress_kv(v) for v in node))
+            same = all(a is b for a, b in zip(new, node))
+        else:
+            return node
+        return node if same else new
 
     def _sample(self, logits: Tensor) -> Tensor:
         logits = logits[..., :self.cfg.vocab]
@@ -101,9 +109,14 @@ class ServeEngine:
         return torch.multinomial(probs, 1, generator=self._gen)[..., 0] \
             .to(torch.int32)
 
-    def _start(self, prompts: np.ndarray):
+    def _start(self, prompts: np.ndarray, frontend: Optional[dict]):
+        """Prefill ``prompts`` (B, S) with the batched ``frontend`` payloads
+        (each (B, ...)); returns the state and the first sampled tokens."""
+        extra = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                 for k, v in (frontend or {}).items()}
         state = self.api.init_decode_state(self.params, self.cfg, self.run,
-                                           prompts.shape[0], self.max_len)
+                                           prompts.shape[0], self.max_len,
+                                           **extra)
         tokens = torch.as_tensor(prompts, dtype=torch.long, device=self.device)
         state, logits = self.prefill(tokens, state)
         if self.kv_tau is not None:
@@ -111,9 +124,12 @@ class ServeEngine:
         return state, self._sample(logits)
 
     # -- batch generation ----------------------------------------------------
-    def generate_batch(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
-        """Same-length batched generation. prompts: (B, S) -> (B, max_new)."""
-        state, tok = self._start(prompts)
+    def generate_batch(self, prompts: np.ndarray, max_new: int,
+                       frontend: Optional[dict] = None) -> np.ndarray:
+        """Same-length batched generation. prompts: (B, S) -> (B, max_new).
+        ``frontend``: batched modality payloads, e.g.
+        {"vision_embeds": (B, N, D)}."""
+        state, tok = self._start(prompts, frontend)
         out = np.zeros((prompts.shape[0], max_new), np.int32)
         for t in range(max_new):
             out[:, t] = tok.cpu().numpy()
@@ -134,7 +150,10 @@ class ServeEngine:
                 slots[i] = None
                 return
             req = pending.pop()
-            state, tok = self._start(req.prompt[-self.max_len // 2:][None, :])
+            state, tok = self._start(
+                req.prompt[-self.max_len // 2:][None, :],
+                {k: np.asarray(v)[None] for k, v in
+                 (req.frontend or {}).items()})
             slots[i] = {"req": req, "state": state, "out": [], "tok": tok}
 
         for i in range(self.batch):

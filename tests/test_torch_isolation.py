@@ -36,7 +36,7 @@ def test_no_jax_or_reference_imports(path):
 PORT_MODULES = ("repro_torch.core.pipeline", "repro_torch.runtime.archive_io",
                 "repro_torch.configs", "repro_torch.models.registry",
                 "repro_torch.models.transformer", "repro_torch.models.ssd",
-                "repro_torch.models.rglru",
+                "repro_torch.models.rglru", "repro_torch.models.moe",
                 "repro_torch.kernels.flash_attention.ops",
                 "repro_torch.kernels.ssd_scan.ops",
                 "repro_torch.runtime.kvcache", "repro_torch.serve.engine",

@@ -330,6 +330,60 @@ def test_block_attention_kernel_misaligned_inputs(cuda_device):
                                atol=1e-5, rtol=1e-5)
 
 
+def _misaligned(x):
+    """The same values, contiguous, at an address 4 bytes past a 16-byte
+    boundary."""
+    out = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    out = out.view(x.shape).copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.cuda
+def test_wrappers_take_views_and_misaligned_inputs(cuda_device):
+    """As the TPU wrappers, quantize, block_attention and gae_project take a
+    non-contiguous view (copied) and a contiguous input off a 16-byte
+    boundary, with the plain version's answer on the same values: quantize
+    bit for bit, the other two at their tolerances above."""
+    x = torch.from_numpy(_quant_input((64, 256), 0.005)).to(cuda_device)
+    view = x.t()
+    for xin in (view, _misaligned(x)):
+        before = t_qz.launches.value
+        for g, w in zip(t_qz.quantize_fused(xin, 0.005),
+                        t_qz.quantize_fused_plain(xin, 0.005)):
+            assert torch.equal(g, w)
+        assert t_qz.launches.value == before + 1
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _attn_inputs(8, 10, 256))
+    qv, kv, vv = (t[..., ::2] for t in (q, k, v))      # (8, 10, 128) views
+    assert not qv.is_contiguous()
+    torch.testing.assert_close(t_ba.block_attention(qv, kv, vv),
+                               t_ba.block_attention_plain(qv, kv, vv),
+                               atol=1e-5, rtol=1e-5)
+    r, u = (torch.from_numpy(a).to(cuda_device)
+            for a in _proj_inputs(300, 256, 256))
+    for rin, uin in ((r.t().contiguous().t(), u.t().contiguous().t()),
+                     (_misaligned(r), _misaligned(u))):
+        for g, w in zip(t_gp.gae_project(rin, uin),
+                        t_gp.gae_project_plain(rin, uin)):
+            torch.testing.assert_close(g, w, atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.cuda
+def test_gae_project_kernel_takes_bf16(cuda_device):
+    """As the TPU kernel, which casts its tiles to fp32 in its body: bf16
+    residuals and basis give the fp32 call's outputs on the upcast values,
+    in fp32."""
+    r, u = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+            for a in _proj_inputs(4096, 256, 256))
+    got = t_gp.gae_project(r, u)
+    want = t_gp.gae_project(r.float(), u.float())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+    for g, w in zip(got, t_gp.gae_project_plain(r, u)):
+        torch.testing.assert_close(g, w, atol=3e-5, rtol=3e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d,dout", PROJ_CASES + PROJ_KERNEL_EDGES)
 def test_gae_project_kernel_matches_plain(cuda_device, n, d, dout):

@@ -114,7 +114,7 @@ def _leaves(tree):
 
 @pytest.mark.parametrize("field,value", [
     ("param_dtype", "bfloat16"), ("dp", 2), ("remat", True), ("sp", True),
-    ("moe_dispatch_groups", 2), ("cast_params_early", True)])
+    ("cast_params_early", True)])
 def test_run_config_refuses_what_the_port_does_not_honour(field, value):
     JRunConfig(**{field: value})             # the JAX package takes it
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -130,6 +130,8 @@ def test_run_config_takes_what_the_port_honours():
                  grad_comp_rank=8, grad_comp_tau=0.1)
     JRunConfig(**train)
     assert RunConfig(**train) == dataclasses.replace(RunConfig(), **train)
+    # per-group MoE dispatch (tests/test_torch_moe.py holds it to JAX's)
+    assert RunConfig(moe_dispatch_groups=2).moe_dispatch_groups == 2
     assert ({f.name for f in dataclasses.fields(RunConfig)}
             == {f.name for f in dataclasses.fields(JRunConfig)})
 
@@ -325,15 +327,13 @@ def test_entry_points_run_on_the_card_by_default():
 
 
 def test_unported_archs_and_features_raise():
+    """whisper-medium and the audio family wait for a later slice."""
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("granite-moe-3b-a800m")
-    moe = dataclasses.replace(
-        registry.reduced_config(get_config("qwen2-1.5b")), family="moe")
+        get_config("whisper-medium")
+    audio = dataclasses.replace(
+        registry.reduced_config(get_config("qwen2-1.5b")), family="audio")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.get_model(moe)
-    from repro_torch.models import attention, transformer
+        registry.get_model(audio)
+    from repro_torch.models import transformer
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        transformer.init_params(moe, RunConfig(), torch.Generator(), "cpu")
-    x = torch.zeros(1, 2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attention.full_attention({}, x, positions=torch.arange(2), x_kv=x)
+        transformer.init_params(audio, RunConfig(), torch.Generator(), "cpu")

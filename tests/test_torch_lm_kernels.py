@@ -63,6 +63,9 @@ SSD_CASES = [(2, 64, 4, 16, 1, 8, 16), (1, 100, 2, 8, 2, 4, 32),
 SSD_EDGE_CASES = [(1, 200, 4, 64, 1, 128, 256), (1, 2048, 4, 64, 1, 128, 64),
                   (2, 256, 4, 64, 2, 128, 64), (1, 300, 4, 48, 2, 6, 64),
                   (1, 130, 2, 80, 1, 64, 64), (1, 250, 2, 16, 1, 16, 100)]
+# state sizes above one tile of 128 (the kernel cuts N in tiles of 128):
+# N 256 (two tiles, G 2, chunk 256) and N 200 (a ragged second tile)
+SSD_WIDE_N = [(1, 300, 4, 64, 2, 256, 256), (1, 200, 2, 32, 1, 200, 64)]
 
 
 @pytest.fixture
@@ -136,7 +139,8 @@ def test_flash_plain_matches_jax_bf16(needs_jax, b, s, t, h, kv, hd, causal,
                                    np.asarray(want, np.float32), **FA_BF16_TOL)
 
 
-@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES + SSD_EDGE_CASES)
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk",
+                         SSD_CASES + SSD_EDGE_CASES + SSD_WIDE_N)
 def test_ssd_plain_matches_jax(needs_jax, b, s, h, p, g, n, chunk):
     ins = _ssd_inputs(b, s, h, p, g, n)
     y, st = (a.numpy() for a in t_ssd.ssd(*(torch.from_numpy(a) for a in ins),
@@ -268,7 +272,8 @@ def test_flash_kernel_refuses_head_dim_above_256(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES + SSD_EDGE_CASES)
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk",
+                         SSD_CASES + SSD_EDGE_CASES + SSD_WIDE_N)
 def test_ssd_kernel_matches_plain(cuda_device, b, s, h, p, g, n, chunk):
     ins = [torch.from_numpy(a).to(cuda_device)
            for a in _ssd_inputs(b, s, h, p, g, n)]
@@ -282,7 +287,8 @@ def test_ssd_kernel_matches_plain(cuda_device, b, s, h, p, g, n, chunk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES + SSD_EDGE_CASES)
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk",
+                         SSD_CASES + SSD_EDGE_CASES + SSD_WIDE_N)
 def test_ssd_kernel_phases_match_plain_phases(cuda_device, b, s, h, p, g, n,
                                               chunk):
     """Each CUDA kernel of the op against its plain phase, fed the kernel's
@@ -309,6 +315,31 @@ def test_ssd_kernel_takes_bf16_inputs(cuda_device):
                           chunk=64)
     assert torch.equal(y, y32.to(torch.bfloat16))
     assert torch.equal(st, st32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 256])
+def test_ssd_kernel_takes_views_and_misaligned_inputs(cuda_device, n):
+    """Non-contiguous x, b, c (slices of wider tensors) and a contiguous x
+    that starts off a 16-byte boundary: copied or read as they are, with
+    the answer of the plain version on the same values."""
+    x, dt, a_log, bm, cm = (torch.from_numpy(a).to(cuda_device) for a in
+                            _ssd_inputs(1, 300, 4, 64, 2, n, seed=6))
+    wide = torch.stack([x, x], dim=-1)[..., 0]          # a strided view
+    bw, cw = (torch.cat([m, m], dim=2)[:, :, :2] for m in (bm, cm))
+    assert not (wide.is_contiguous() or bw.is_contiguous())
+    assert torch.equal(wide, x) and torch.equal(bw, bm)
+    odd = torch.empty(x.numel() + 1, device=cuda_device)[1:].view(x.shape)
+    odd.copy_(x)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    want = t_ssd.ssd_plain(x, dt, a_log, bm, cm, chunk=256)
+    for xin, bin_, cin in ((wide, bw, cw), (odd, bm, cm)):
+        before = t_ssd.launches.value
+        got = t_ssd.ssd(xin, dt, a_log, bin_, cin, chunk=256)
+        assert t_ssd.launches.value == before + 1
+        for g, w in zip(got, want):
+            scale = max(1.0, w.abs().max().item())
+            torch.testing.assert_close(g, w, atol=3e-4 * scale, rtol=3e-4)
 
 
 @pytest.mark.cuda
