@@ -29,10 +29,11 @@ Phases, each reported on its own lines:
    flash_attention also at recurrentgemma-9b's local attention (16 query
    heads on one kv head of 256, window 2048, 4096 tokens), a ragged hd-256
    case and a padded head size (96), at granite-moe-3b-a800m's causal
-   self-attention (hd 64) and at llama-3.2-vision-11b's non-causal
-   cross-attention (4096 queries on 1601 vision tokens, hd 128), in fp32
-   and bf16, reported in rows of their own (``"path"``: the model), not
-   gated; ssd_scan at N 256 (two tiles of the state), held to its plain
+   self-attention (hd 64), at llama-3.2-vision-11b's non-causal
+   cross-attention (4096 queries on 1601 vision tokens, hd 128) and at
+   whisper-medium's encoder (B 4, non-causal, T = S = 1500, hd 64) and
+   cross-attention (448 queries on 1500 frames), in fp32 and bf16,
+   reported in rows of their own (``"path"``: the model), not gated; ssd_scan at N 256 (two tiles of the state), held to its plain
    version, its time reported in a row of its own (``"path": "N 256"``);
 3. gradients: through each kernel's ``torch.autograd.Function`` against
    autograd through its plain version on the card — ``wq``, ``wk``, ``wv``
@@ -101,19 +102,30 @@ Phases, each reported on its own lines:
    quantize launched for every model's KV caches), and the peak device
    memory of each model's run; then llama4-scout-17b-a16e (4 of 48 layers)
    and deepseek-coder-33b (16 of 62) at full width: the prefill in fp32
-   and bf16, one flash launch a layer, finite logits;
+   and bf16, one flash launch a layer, finite logits; then whisper-medium
+   (762.7 M params: 24 encoder and 24 decoder layers) at full width and
+   depth with seeded weights and frames: ``forward`` over B 4 x 448
+   decoder tokens and B 4 x 1500 frames in fp32 and bf16, with flash
+   launched 72 times (24 encoder layers non-causal over the 1500 frames,
+   24 causal decoder and 24 cross layers, counted apart), the bf16 gate
+   and the consistency gate as above, the quantize kernel on a prefilled
+   decoder cache with the cross K/V left raw by ``kv_tau``, and
+   ``ServeEngine.serve`` of 8 requests (whisper's 4-token start sequence,
+   32 new tokens, a 448-token cache), each with its own seeded frames as
+   its frontend, with raw KV and ``kv_tau`` 0.05 (gates: 24 flash launches
+   and, with ``kv_tau``, 2 quantize launches for each admitted request);
 9. LM training: gae_project and quantize at (841728, 256), the shape a
    gae train step gives them on mamba2-370m's in_proj, against their
    plain versions and timed (rows with ``"path": "train"``); one train
    step's loss and gradients of reduced qwen2-1.5b, mamba2-370m,
-   recurrentgemma-9b, granite-moe-3b-a800m and llama-3.2-vision-11b on
-   the card against the CPU (1e-5; 1e-5 of each leaf's largest);
-   qwen2-1.5b at
-   full width and depth trained 8 AdamW steps of B 1 x S 4096 with
-   ``ce_chunk`` 512 (gates: finite losses, the last below step 0's,
-   flash_attention launched 28 times a step; printed: steps/s, tokens/s,
-   the card's busy time and idle share over 2 profiled steps, peak
-   memory); on seeded full-width mamba2-370m params, the gae mode's
+   recurrentgemma-9b, granite-moe-3b-a800m, llama-3.2-vision-11b and
+   whisper-medium on the card against the CPU (1e-5; 1e-5 of each leaf's
+   largest); qwen2-1.5b at full width and depth trained 8 AdamW steps of
+   B 1 x S 4096 with ``ce_chunk`` 512, and whisper-medium 8 steps of
+   B 4 x S 448 over seeded frames (gates: finite losses, the last below
+   step 0's, flash_attention launched 28 and 72 times a step; printed:
+   steps/s, tokens/s, the card's busy time and idle share over 2 profiled
+   steps, peak memory); on seeded full-width mamba2-370m params, the gae mode's
    gradients within tau 1e-3 in every block (ssd_scan once per layer,
    quantize and gae_project once per leaf) and ``save_compressed`` /
    ``restore_compressed`` at tau 0.45 with every block within it;
@@ -613,14 +625,19 @@ SSD_WIDE = "N 256"      # the ssd_scan row of a state in two tiles of 128
 # kernel is not built for (96, zero-padded to 128); granite-moe-3b-a800m's
 # self-attention (24 query heads on 8 kv heads of 64, causal); and
 # llama-3.2-vision-11b's cross-attention (32 query heads on 8 kv heads of
-# 128, non-causal, 4096 queries on the 1601 vision tokens).
+# 128, non-causal, 4096 queries on the 1601 vision tokens); whisper-medium's
+# encoder (16 heads of 64 on 16 kv heads, non-causal, T = S = 1500: a ragged
+# last key tile) and cross-attention (its 448 decoder tokens on the 1500
+# frames), at the prefill's B 4.
 # (path, b, s, t, h, kv heads, hd, causal, window)
 FA_PATH_CASES = (
     ("recurrentgemma-9b", 1, 4096, 4096, 16, 1, 256, True, 2048),
     ("recurrentgemma-9b", 1, 300, 300, 16, 1, 256, True, 64),
     ("recurrentgemma-9b", 1, 1000, 1000, 16, 2, 96, True, 256),
     ("granite-moe-3b-a800m", 1, 4096, 4096, 24, 8, 64, True, 0),
-    ("llama-3.2-vision-11b", 1, 4096, 1601, 32, 8, 128, False, 0))
+    ("llama-3.2-vision-11b", 1, 4096, 1601, 32, 8, 128, False, 0),
+    ("whisper-medium encoder", 4, 1500, 1500, 16, 16, 64, False, 0),
+    ("whisper-medium cross", 4, 448, 1500, 16, 16, 64, False, 0))
 
 
 def _flash_path_rows(torch, dev, gen, row, report) -> None:
@@ -1375,6 +1392,14 @@ DECODE_STEPS = 16
 # the bf16 prefill's logits, through the kernel and through its plain
 # version, are compared with the fp32 prefill's on the last positions
 TAIL = 64
+# whisper-medium: prefill over B 4 x 448 decoder tokens (whisper's text
+# context) and B 4 x 1500 frames; serving with its start sequence
+# <|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|> as every
+# prompt, 32 new tokens, the 448-token context as the cache
+WHISPER = "whisper-medium"
+WHISPER_BATCH, WHISPER_TOKENS = 4, 448
+WHISPER_PROMPT = (50258, 50259, 50359, 50363)
+WHISPER_SERVE = dict(requests=8, slots=4, new=32, max_len=448)
 # the VLM's cross layers' tanh gates are set to seeded values in this range
 # (at their init of 0 a cross layer adds nothing, and no check would see a
 # wrong cross-attention)
@@ -1382,11 +1407,14 @@ VLM_GATES = (0.3, 1.0)
 
 
 def kernel_layers(cfg) -> int:
-    """The layers that run the model's kernel: every layer (the VLM's 32
-    self- and 8 cross-attention layers alike), or the hybrid's
-    local-attention layers (one in ``attn_period``)."""
+    """The attention layers that run the model's kernel: every layer (the
+    VLM's 32 self- and 8 cross-attention layers alike), the hybrid's
+    local-attention layers (one in ``attn_period``), or whisper's encoder
+    layers and its decoder's self- and cross-attention layers."""
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.attn_period
+    if cfg.family == "audio":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
     return cfg.n_layers
 
 
@@ -1447,7 +1475,7 @@ def routing_flips(torch, batched: list, stepped: list) -> int:
 def lm_prefill(torch, api, params, cfg, run, tokens, kernel, counters,
                extra: dict) -> dict:
     """``forward`` over ``tokens`` (the prefill; ``extra`` holds the VLM's
-    ``vision_embeds``) after a warm-up: wall and tokens/s, launches of
+    ``vision_embeds`` or whisper's ``frames``) after a warm-up: wall and tokens/s, launches of
     every counter, the device busy time of a profiled repeat and the part
     of it in CUDA kernels whose name holds the kernel's first word.  Fails
     unless the kernel launched once per layer that runs it
@@ -1469,7 +1497,7 @@ def lm_prefill(torch, api, params, cfg, run, tokens, kernel, counters,
         raise CheckFailed(f"{cfg.arch} forward ({run.compute_dtype}) launched "
                           f"{kernel} {launches[kernel]} times, not once per "
                           f"layer that runs it ({kernel_layers(cfg)})")
-    if (tuple(logits.shape) != (1, tokens.shape[1], cfg.vocab)
+    if (tuple(logits.shape) != (*tokens.shape, cfg.vocab)
             or not torch.isfinite(logits).all()):
         raise CheckFailed(f"{cfg.arch} forward ({run.compute_dtype}) gave "
                           f"shape {tuple(logits.shape)} or non-finite logits")
@@ -1480,14 +1508,16 @@ def lm_prefill(torch, api, params, cfg, run, tokens, kernel, counters,
         torch.cuda.synchronize()
     busy = device_ms(torch, prof)
     parts = device_ms_by_name(torch, prof, kernel.split("_")[0])
-    return dict(wall=wall, tokens_s=tokens.shape[1] / wall, busy=busy,
+    return dict(wall=wall, tokens_s=tokens.numel() / wall, busy=busy,
+                shape=tuple(tokens.shape),
                 mine=sum(parts.values()), parts=parts, launches=launches,
                 tail=tail, top=top_device_ms(torch, prof))
 
 
 def print_prefill(arch, kernel, dtype, r) -> None:
     busy, mine = r["busy"], r["mine"]
-    print(f"lm {arch} prefill {dtype}: B 1 x S {PREFILL_TOKENS}, wall "
+    print(f"lm {arch} prefill {dtype}: B {r['shape'][0]} x S "
+          f"{r['shape'][1]}, wall "
           f"{r['wall']:.4f} s, {r['tokens_s']:.1f} tokens/s; profiled run: "
           f"device busy {busy:.3f} ms, of it {kernel} {mine:.3f} ms "
           f"({mine / busy if busy else 0.0:.4f} of it; by CUDA kernel: "
@@ -1502,7 +1532,7 @@ def _seeded_model(torch, dev, cfg, run, gen, batch: int = 1):
     """Seeded params of ``cfg`` on ``dev`` and the forward's extra inputs:
     for the VLM, its tanh gates (16 at full depth) set to seeded values in
     ``VLM_GATES`` and seeded ``vision_embeds`` (batch, n_vision_tokens,
-    d_model)."""
+    d_model); for whisper, seeded ``frames`` (batch, n_frames, d_model)."""
     from repro_torch.models import registry
 
     params = registry.init_params(cfg, run, gen, dev)
@@ -1516,6 +1546,9 @@ def _seeded_model(torch, dev, cfg, run, gen, batch: int = 1):
         extra["vision_embeds"] = torch.randn(
             batch, cfg.n_vision_tokens, cfg.d_model, generator=gen,
             device=gen.device).to(dev)
+    if cfg.family == "audio":
+        extra["frames"] = torch.randn(batch, cfg.n_frames, cfg.d_model,
+                                      generator=gen, device=gen.device).to(dev)
     return params, extra
 
 
@@ -1749,6 +1782,220 @@ def run_cut_models(torch, dev, counters) -> None:
         torch.cuda.empty_cache()
 
 
+class FlashRecorder:
+    """While active, records each flash_attention wrapper call's q and k
+    shapes and mask (the module attribute the models call is swapped for a
+    recording wrapper around it, and restored on exit); the wrapper still
+    launches and counts as before."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_attention import ops as fa
+        self.fa, self.calls = fa, []
+
+    def __enter__(self):
+        wrapper = self.wrapper = self.fa.flash_attention
+
+        def rec(q, k, v, *, causal=True, window=0):
+            self.calls.append((tuple(q.shape), tuple(k.shape), causal))
+            return wrapper(q, k, v, causal=causal, window=window)
+        self.fa.flash_attention = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention = self.wrapper
+
+
+def _whisper_flash_launches(torch, api, params, cfg, run, tokens, frames,
+                            counters) -> dict:
+    """One more ``forward``, recorded: flash_attention's launches split by
+    the attention they serve (the encoder's T = S = n_frames non-causal, the
+    decoder's causal self-attention, its cross-attention over the frames).
+    Fails unless each is one a layer and they add up to the counter's."""
+    counters["flash_attention"].reset()
+    with torch.no_grad(), FlashRecorder() as rec:
+        api.forward(params, cfg, run, tokens, frames=frames)
+    torch.cuda.synchronize()
+    f = cfg.n_frames
+    split = {"encoder": sum(1 for q, k, c in rec.calls
+                            if not c and q[1] == k[1] == f),
+             "decoder": sum(1 for q, k, c in rec.calls if c),
+             "cross": sum(1 for q, k, c in rec.calls
+                          if not c and q[1] != f and k[1] == f)}
+    want = {"encoder": cfg.n_enc_layers, "decoder": cfg.n_layers,
+            "cross": cfg.n_layers}
+    total = counters["flash_attention"].value
+    print(f"lm {cfg.arch} prefill {run.compute_dtype}: flash_attention "
+          f"launches by attention {json.dumps(split)} of {total} counted "
+          f"(wanted {json.dumps(want)})", flush=True)
+    if split != want or total != sum(split.values()):
+        raise CheckFailed(f"{cfg.arch} forward ({run.compute_dtype}): flash "
+                          f"launches {split}, counted {total}, not {want}")
+    return split
+
+
+def run_whisper_path(torch, dev, counters) -> dict:
+    """whisper-medium at full width and depth with seeded weights: the
+    prefill (``forward`` over B 4 x 448 decoder tokens and B 4 x 1500
+    seeded frames) in fp32 and bf16, with flash_attention launched once per
+    attention layer (24 encoder, 24 causal decoder and 24 cross layers) and
+    the bf16 logits through the kernel held to those through its plain
+    version; ``forward``'s last logits against the engine's prefill; the
+    quantize kernel on a prefilled decoder cache; one ``decode_step``'s
+    device time against its wall; ``ServeEngine.serve`` of 8 requests, each
+    with its own seeded frames as its frontend, with raw KV and ``kv_tau``
+    (24 flash launches, one encoder, for each admitted request; quantize
+    twice for each, the cross K/V left raw).  Returns flash's launches in
+    the prefill runs, keyed by (kernel, dtype, row path)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg, run = get_config(WHISPER), RunConfig()
+    b, s, kernel = WHISPER_BATCH, WHISPER_TOKENS, "flash_attention"
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, extra = _seeded_model(torch, dev, cfg, run, gen, batch=b)
+    frames = extra["frames"]
+    api = registry.get_model(cfg)
+    print(f"lm {WHISPER}: {cfg.n_enc_layers} encoder + {cfg.n_layers} decoder "
+          f"layers ({kernel_layers(cfg)} attention layers run {kernel}), "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab}, "
+          f"{sum(_numel(params)) / 1e6:.3f} M params (seeded, fp32), made in "
+          f"{time.perf_counter() - t0:.1f} s; frames {tuple(frames.shape)} "
+          f"seeded N(0, 1); device memory allocated before it "
+          f"{before / 2**30:.2f} GiB", flush=True)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+
+    # 1. prefill, fp32 then bf16, and the bf16 kernel against its plain
+    # version on the model path
+    launches = {}
+    r32 = lm_prefill(torch, api, params, cfg, run, tokens, kernel, counters,
+                     extra)
+    print_prefill(WHISPER, kernel, "float32", r32)
+    run16 = RunConfig(compute_dtype="bfloat16")
+    r16 = lm_prefill(torch, api, params, cfg, run16, tokens, kernel, counters,
+                     extra)
+    print_prefill(WHISPER, kernel, "bfloat16", r16)
+    for rn in (run, run16):
+        split = _whisper_flash_launches(torch, api, params, cfg, rn, tokens,
+                                        frames, counters)
+        for part in ("encoder", "cross"):
+            launches[(kernel, rn.compute_dtype, f"{WHISPER} {part}")] = \
+                split[part]
+    tail_plain = _forward_plain(torch, api, params, cfg, run16, tokens,
+                                kernel, extra)
+    ref = r32["tail"]
+    e_kernel = (r16["tail"] - ref).abs().max().item()
+    e_plain = (tail_plain - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    limit = 1.5 * e_plain + 1e-3 * scale
+    print(f"lm {WHISPER} prefill bf16 against fp32, last {TAIL} positions: "
+          f"max abs diff through {kernel} {e_kernel:.5f}, through its plain "
+          f"version {e_plain:.5f} (max |logit| {scale:.4f}; gate {limit:.5f} "
+          f"= 1.5 x plain + 1e-3 x max |logit|)", flush=True)
+    if not e_kernel <= limit:
+        raise CheckFailed(f"{WHISPER} bf16 prefill through {kernel} is "
+                          f"{e_kernel} from fp32, more than {limit}")
+    del r32, r16, tail_plain, ref
+
+    # 2. consistency: forward (the kernel) against the engine's prefill (one
+    # decode_step at a time, the plain decode code) over the same frames
+    serve = WHISPER_SERVE
+    prompt = tokens[:, :CONSISTENCY_PROMPT]
+    with torch.no_grad():
+        full = api.forward(params, cfg, run, prompt, **extra)[:, -1]
+    eng = ServeEngine(cfg, run, params, batch_size=b,
+                      max_len=serve["max_len"], kv_tau=KV_TAU, device=dev)
+    state, last = eng.prefill(prompt, api.init_decode_state(
+        params, cfg, run, b, serve["max_len"], **extra))
+    diff = (full - last).abs().max().item()
+    print(f"lm {WHISPER} consistency: forward vs engine prefill on B {b} x "
+          f"{CONSISTENCY_PROMPT} tokens, last logits max abs diff {diff:.3e} "
+          f"(max |logit| {full.abs().max().item():.3f}, tolerance "
+          f"{CONSISTENCY_ATOL})", flush=True)
+    if not diff <= CONSISTENCY_ATOL:
+        raise CheckFailed(f"{WHISPER}: forward and engine prefill differ by "
+                          f"{diff}")
+    _check_kv_quantize(torch, WHISPER, _kv_cache(state))
+    if eng._compress_kv(state).cross_kv is not state.cross_kv:
+        raise CheckFailed(f"{WHISPER}: kv_tau quantized the cross K/V")
+    print(f"lm {WHISPER} kv_tau: the cross K/V "
+          f"{tuple(state.cross_kv[0].shape)} left raw", flush=True)
+    del state, full, last, eng
+
+    # where a serving step's time goes: the device time of one decode_step
+    # (B 1, as the engine runs each slot) against its wall
+    state = api.init_decode_state(params, cfg, run, 1, serve["max_len"],
+                                  frames=frames[:1])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(DECODE_STEPS):
+            _, state = api.decode_step(params, cfg, run, prompt[:1, t:t + 1],
+                                       state)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / DECODE_STEPS * 1e3
+    busy_ms = device_ms(torch, prof) / DECODE_STEPS
+    print(f"lm {WHISPER} decode_step (B 1, profiled): wall {step_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / step_ms:.4f}", flush=True)
+    del state
+
+    # 3. serving: each request with its own seeded frames; its admission
+    # runs the encoder (24 flash launches) and projects the cross K/V
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=np.asarray(WHISPER_PROMPT, np.int32),
+                    max_new_tokens=serve["new"],
+                    frontend={"frames": rng.standard_normal(
+                        (cfg.n_frames, cfg.d_model), dtype=np.float32)})
+            for i in range(serve["requests"])]
+    steps = serve["requests"] * (len(WHISPER_PROMPT) + serve["new"] - 1)
+    outs = {}
+    for tau in (None, KV_TAU):
+        eng = ServeEngine(cfg, run, params, batch_size=serve["slots"],
+                          max_len=serve["max_len"], kv_tau=tau, device=dev)
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        outs[tau] = eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {name: c.value for name, c in counters.items()}
+        gen_tokens = sum(len(c.tokens) for c in outs[tau])
+        print(f"lm {WHISPER} serve (kv_tau {tau}): {len(outs[tau])} requests, "
+              f"{serve['slots']} slots, prompt {len(WHISPER_PROMPT)}, "
+              f"{gen_tokens} new tokens in {wall:.4f} s, "
+              f"{gen_tokens / wall:.2f} tokens/s, {wall / steps * 1e3:.2f} ms "
+              f"per decode_step; launches {json.dumps(n)}", flush=True)
+        if (len(outs[tau]) != serve["requests"]
+                or gen_tokens != serve["requests"] * serve["new"]):
+            raise CheckFailed(f"{WHISPER} serve (kv_tau {tau}) returned "
+                              f"{len(outs[tau])} completions, {gen_tokens} "
+                              f"tokens")
+        want = {"flash_attention": cfg.n_enc_layers * serve["requests"],
+                "quantize": 0 if tau is None else 2 * serve["requests"]}
+        if any(n[k] != v for k, v in want.items()):
+            raise CheckFailed(f"{WHISPER} serve (kv_tau {tau}): launches "
+                              f"{n}, not {want} (an encoder a request; K "
+                              f"and V quantized once a request)")
+    agree = np.mean([np.mean(a.tokens == c.tokens)
+                     for a, c in zip(outs[None], outs[KV_TAU])])
+    distinct = len({tuple(c.tokens.tolist()) for c in outs[None]})
+    print(f"lm {WHISPER} serve: token agreement raw KV vs kv_tau {KV_TAU}: "
+          f"{agree:.4f}; {distinct} distinct completions of "
+          f"{serve['requests']} (same prompt, frames differ)", flush=True)
+    print(f"lm {WHISPER}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del params, extra, frames, eng, tokens, prompt, reqs
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _values(t) -> str:
     return "[" + ", ".join(f"{v:.4f}" for v in t.tolist()) + "]"
 
@@ -1905,6 +2152,9 @@ def _to_cpu(tree):
 TRAIN_GAE_BLOCKS = 48 * 1024 * 4384 // 256
 GAE_BLOCK = 256
 GRAD_BIN = 1e-4           # gae_compress_grads' bin
+# a gradient that is 0 in exact arithmetic, as a share of the largest
+# gradient: fp32 rounding noise sits near 1e-9 of it
+ZERO_GRAD_FRAC = 1e-6
 # qwen2-1.5b at full width and depth: B 1 x S 4096 (the prefill cell's
 # shape) from SyntheticCorpus, the LM head and CE in chunks of 512, AdamW
 # (warmup-cosine to TRAIN_LR over the run, clipping at 1.0, decay 0.01)
@@ -1948,6 +2198,7 @@ def run_train_path(torch, dev, counters, rows) -> dict:
     check_train_kernels(torch, dev, rows)
     train_card_vs_cpu(torch, dev, counters)
     train_qwen(torch, dev, counters)
+    train_whisper(torch, dev, counters)
     n_leaves = train_mamba_in_process(torch, dev, counters)
     gae = train_launcher(n_leaves)
     train_chaos(torch, dev)
@@ -2010,11 +2261,25 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
-def _grads_per_leaf_close(what, got, want, frac=1e-5) -> float:
+def _grads_per_leaf_close(what, got, want, frac=1e-5, zero=None) -> float:
     """Fails unless every gradient leaf in ``got`` is within ``frac`` of
-    its ``want`` leaf's largest; returns the largest ratio of the two."""
+    its ``want`` leaf's largest; returns the largest ratio of the two.
+    Leaves marked in ``zero`` have a gradient of 0 in exact arithmetic
+    (whisper's key biases: ``q . bk`` is the same for every key of a query,
+    and softmax does not see a shift), so both sides are rounding noise:
+    they are held below ``ZERO_GRAD_FRAC`` of the largest gradient of all
+    leaves instead."""
+    largest = max(w.abs().max().item() for w in want)
     worst = 0.0
-    for g, w in zip(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if zero is not None and zero[i]:
+            noise = max(g.abs().max().item(), w.abs().max().item())
+            if noise > ZERO_GRAD_FRAC * largest:
+                raise CheckFailed(f"{what}: a gradient that is 0 in exact "
+                                  f"arithmetic reaches {noise:.3e}, more "
+                                  f"than {ZERO_GRAD_FRAC} x the largest "
+                                  f"{largest:.3e}")
+            continue
         scale = w.abs().max().item()
         err = (g.cpu() - w).abs().max().item()
         worst = max(worst, err / scale if scale else err)
@@ -2025,20 +2290,31 @@ def _grads_per_leaf_close(what, got, want, frac=1e-5) -> float:
     return worst
 
 
+def _leaf_keys(tree, key=None) -> list:
+    """The last key of each leaf of a nested dict, in ``tree_leaves``
+    order."""
+    if isinstance(tree, dict):
+        return [k for name in sorted(tree) for k in _leaf_keys(tree[name],
+                                                              name)]
+    return [key]
+
+
 def train_card_vs_cpu(torch, dev, counters) -> None:
     """One train step's loss and gradients of reduced qwen2-1.5b,
-    mamba2-370m, recurrentgemma-9b, granite-moe-3b-a800m and
+    mamba2-370m, recurrentgemma-9b, granite-moe-3b-a800m,
     llama-3.2-vision-11b (nonzero tanh gates, seeded vision embeddings in
-    the batch) on the card (the kernels) against the CPU (their plain
-    versions): the loss at 1e-5, every gradient at 1e-5 of its leaf's
-    largest; TF32 off.  The step itself also runs on the card."""
+    the batch) and whisper-medium (seeded frames in the batch) on the card
+    (the kernels) against the CPU (their plain versions): the loss at 1e-5,
+    every gradient at 1e-5 of its leaf's largest (whisper's key biases,
+    whose gradient is 0, below 1e-6 of the largest of all); TF32 off.  The
+    step itself also runs on the card."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
     from repro_torch.models import registry
     from repro_torch.train import loop, optim
 
-    for arch, kernel in LM_MODELS:
+    for arch, kernel in LM_MODELS + ((WHISPER, "flash_attention"),):
         cfg = registry.reduced_config(get_config(arch))
         run = RunConfig(ce_chunk=16)
         params, extra = _seeded_model(torch, "cpu", cfg, run,
@@ -2062,9 +2338,11 @@ def train_card_vs_cpu(torch, dev, counters) -> None:
             raise CheckFailed(f"{arch} reduced: loss on the card "
                               f"{l_dev.item()} against the CPU's "
                               f"{l_cpu.item()}")
+        zero = ([key == "bk" for key in _leaf_keys(params)]
+                if cfg.family == "audio" else None)
         worst = _grads_per_leaf_close(f"{arch} reduced",
                                       optim.tree_leaves(g_dev),
-                                      optim.tree_leaves(g_cpu))
+                                      optim.tree_leaves(g_cpu), zero=zero)
         opt = optim.adamw(1e-3)
         state = loop.TrainState(params=_tree_to(params, dev),
                                 opt=opt.init(_tree_to(params, dev)), gc=None,
@@ -2078,18 +2356,52 @@ def train_card_vs_cpu(torch, dev, counters) -> None:
 
 
 def train_qwen(torch, dev, counters) -> None:
-    """qwen2-1.5b at full width and depth, TRAIN_STEPS AdamW steps of
-    B 1 x S 4096; gates: finite losses, the last below the first,
-    flash_attention launched exactly once per layer each step."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """qwen2-1.5b at full width and depth: TRAIN_STEPS AdamW steps of
+    B 1 x S 4096 from ``SyntheticCorpus``, the LM head and CE chunked."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
-    from repro_torch.train import loop, optim
 
     cfg = get_config("qwen2-1.5b")
-    run = RunConfig(ce_chunk=TRAIN_CE_CHUNK)
+    corpus = SyntheticCorpus(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1, seed=0))
+    train_full(torch, dev, counters, cfg, RunConfig(ce_chunk=TRAIN_CE_CHUNK),
+               corpus.batch_at, (1, TRAIN_SEQ))
+
+
+def train_whisper(torch, dev, counters) -> None:
+    """whisper-medium at full width and depth: TRAIN_STEPS AdamW steps of
+    B 4 x S 448 decoder tokens from ``SyntheticCorpus`` over B 4 x 1500
+    frames, seeded anew each step on the card; the CE on the full logits
+    (whisper's ``train_loss`` reads no ``ce_chunk``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+
+    cfg = get_config(WHISPER)
+    b, s = WHISPER_BATCH, WHISPER_TOKENS
+    corpus = SyntheticCorpus(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=s, global_batch=b, seed=0))
+    gen = torch.Generator(device=dev)
+
+    def batch_at(i):
+        gen.manual_seed(1000 + i)
+        return {**corpus.batch_at(i), "frames": torch.randn(
+            b, cfg.n_frames, cfg.d_model, generator=gen, device=dev)}
+    train_full(torch, dev, counters, cfg, RunConfig(), batch_at, (b, s))
+
+
+def train_full(torch, dev, counters, cfg, run, batch_at, shape) -> None:
+    """``cfg`` at full width and depth with seeded params, TRAIN_STEPS
+    AdamW steps (warmup-cosine to TRAIN_LR, clipping at 1.0, decay 0.01) of
+    ``batch_at(step)``, ``shape`` (B, S) decoder tokens each; the last
+    TRAIN_PROFILED steps under the profiler.  Gates: finite losses, the
+    last below step 0's, flash_attention launched once per attention layer
+    (``kernel_layers``) each step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import loop, optim
+
     opt = optim.adamw(optim.warmup_cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
                                                    TRAIN_STEPS),
                       weight_decay=0.01, max_grad_norm=1.0)
@@ -2101,12 +2413,10 @@ def train_qwen(torch, dev, counters) -> None:
     torch.cuda.synchronize()
     made = time.perf_counter() - t0
     step_fn = loop.make_train_step(cfg, run, opt)
-    corpus = SyntheticCorpus(TokenPipelineConfig(
-        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1, seed=0))
     losses, walls, launches = [], [], []
 
     def one_step(state, i):
-        batch = corpus.batch_at(i)
+        batch = batch_at(i)
         for c in counters.values():
             c.reset()
         t0 = time.perf_counter()
@@ -2131,12 +2441,14 @@ def train_qwen(torch, dev, counters) -> None:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = walls[1:]
     prof_wall = sum(walls[profiled_from:]) * 1e3
-    print(f"train qwen2-1.5b: {cfg.n_layers} layers, B 1 x S {TRAIN_SEQ}, "
-          f"ce_chunk {TRAIN_CE_CHUNK}, AdamW; state made in {made:.1f} s; "
-          f"losses {' '.join(f'{x:.4f}' for x in losses)}; step walls s "
-          f"{' '.join(f'{x:.4f}' for x in walls)}; steps 1-{TRAIN_STEPS - 1}:"
-          f" {len(steady) / sum(steady):.4f} steps/s, "
-          f"{len(steady) * TRAIN_SEQ / sum(steady):.1f} tokens/s; last "
+    tokens = shape[0] * shape[1]
+    layers = kernel_layers(cfg)
+    print(f"train {cfg.arch}: {layers} attention layers, B {shape[0]} x S "
+          f"{shape[1]}, ce_chunk {run.ce_chunk}, AdamW; state made in "
+          f"{made:.1f} s; losses {' '.join(f'{x:.4f}' for x in losses)}; "
+          f"step walls s {' '.join(f'{x:.4f}' for x in walls)}; steps "
+          f"1-{TRAIN_STEPS - 1}: {len(steady) / sum(steady):.4f} steps/s, "
+          f"{len(steady) * tokens / sum(steady):.1f} tokens/s; last "
           f"{TRAIN_PROFILED} steps profiled: device busy {busy_ms:.1f} ms of "
           f"{prof_wall:.1f} ms wall, idle share {1 - busy_ms / prof_wall:.4f}"
           f" (flash_attention {flash:.1f} ms, cuBLAS gemm {gemm:.1f} ms, "
@@ -2144,17 +2456,16 @@ def train_qwen(torch, dev, counters) -> None:
           f"{peak:.2f} GiB; launches a step "
           f"{json.dumps(launches[-1])}", flush=True)
     if not all(math.isfinite(x) for x in losses):
-        raise CheckFailed(f"qwen2-1.5b training: a loss is not finite: "
+        raise CheckFailed(f"{cfg.arch} training: a loss is not finite: "
                           f"{losses}")
     if not losses[-1] < losses[0]:
-        raise CheckFailed(f"qwen2-1.5b training: the last loss "
+        raise CheckFailed(f"{cfg.arch} training: the last loss "
                           f"{losses[-1]} is not below step 0's {losses[0]}")
-    bad = [i for i, n in enumerate(launches)
-           if n["flash_attention"] != cfg.n_layers]
+    bad = [i for i, n in enumerate(launches) if n["flash_attention"] != layers]
     if bad:
-        raise CheckFailed(f"qwen2-1.5b training: flash_attention launched "
+        raise CheckFailed(f"{cfg.arch} training: flash_attention launched "
                           f"{[launches[i]['flash_attention'] for i in bad]} "
-                          f"times at steps {bad}, not {cfg.n_layers}")
+                          f"times at steps {bad}, not {layers}")
     del state
     torch.cuda.empty_cache()
 
@@ -2433,6 +2744,7 @@ def main() -> int:
         del comp, hb
         run_clis()
         launches.update(run_lm_path(torch, dev, counters))
+        launches.update(run_whisper_path(torch, dev, counters))
         launches.update(run_train_path(torch, dev, counters, rows))
     except (CheckFailed, AssertionError) as e:
         print(f"FAIL: {e}", file=sys.stderr)

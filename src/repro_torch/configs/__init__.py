@@ -16,13 +16,13 @@ _ARCH_MODULES = {
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "llama-3.2-vision-11b": "llama_3_2_vision_11b",
+    "whisper-medium": "whisper_medium",
 }
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _ARCH_MODULES:
-        raise KeyError(f"arch {arch!r} is not ported yet (ported: "
-                       f"{sorted(_ARCH_MODULES)}); see ROADMAP.md for the rest")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.CONFIG
 

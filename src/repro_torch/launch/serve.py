@@ -6,9 +6,11 @@ the compressed-KV option (runtime/kvcache), on the card by default.
   python -m repro_torch.launch.serve --arch recurrentgemma-9b --reduced --device cpu
   python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --reduced --device cpu
 
-The VLM (llama-3.2-vision-11b) needs each request's patch embeddings, which
-this launcher, as the JAX package's, does not make: it exits 2 for the vlm
-family.  ``ServeEngine`` with ``Request.frontend`` serves it.
+The VLM (llama-3.2-vision-11b) needs each request's patch embeddings and
+whisper (whisper-medium) each request's frame embeddings, which this
+launcher, as the JAX package's, does not make: it exits 2 for the vlm and
+audio families.  ``ServeEngine`` with ``Request.frontend``
+(``{"vision_embeds": ...}`` or ``{"frames": ...}``) serves them.
 """
 from __future__ import annotations
 
@@ -25,6 +27,9 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.core.exec import resolve_device
 from repro_torch.models.registry import init_params, reduced_config
 from repro_torch.serve.engine import Request, ServeEngine
+
+# the families whose requests carry a modality frontend, and its payload
+FRONTENDS = {"vlm": "vision_embeds", "audio": "frames"}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -44,11 +49,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
-    if cfg.family == "vlm":
-        print(f"{args.arch}: the vlm family needs a frontend with each "
-              f"request's vision_embeds, which this launcher does not make; "
-              f"serve it through ServeEngine with Request.frontend",
-              file=sys.stderr)
+    if cfg.family in FRONTENDS:
+        print(f"{args.arch}: the {cfg.family} family needs a frontend with "
+              f"each request's {FRONTENDS[cfg.family]}, which this launcher "
+              f"does not make; serve it through ServeEngine with "
+              f"Request.frontend", file=sys.stderr)
         sys.exit(2)
     if args.reduced:
         cfg = reduced_config(cfg)

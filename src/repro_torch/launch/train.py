@@ -10,7 +10,9 @@ The flags and printed lines are the JAX package's (``resumed at step N``,
 ``[event] {...}``, ``done: steps a->b  loss=...  ... tok/s  restores=...``),
 plus ``--device``.  SIGTERM and SIGINT checkpoint at the next step boundary
 and stop.  ``--tp`` above 1 (tensor parallelism) is not ported and is refused
-at parse time (exit 2).  ``--resume`` reads a step directory written by this
+at parse time (exit 2), as are the vlm and audio families: their batches
+need a frontend (``vision_embeds``, ``frames``) that the token pipeline does
+not make.  ``--resume`` reads a step directory written by this
 driver or by the JAX package's (``runtime.checkpoint``).
 """
 from __future__ import annotations
@@ -28,6 +30,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.exec import resolve_device
 from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+from repro_torch.launch.serve import FRONTENDS
 from repro_torch.models.registry import reduced_config
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.failures import ResilientRunner
@@ -61,6 +64,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                  f"(one device, ROADMAP.md)")
 
     cfg = get_config(args.arch)
+    if cfg.family in FRONTENDS:
+        ap.error(f"--arch {args.arch}: the {cfg.family} family's batches "
+                 f"need {FRONTENDS[cfg.family]} (its frontend), which the "
+                 f"token pipeline does not make; train it through "
+                 f"train.loop.make_train_step with them in the batch")
     if args.reduced:
         cfg = reduced_config(cfg)
     run = RunConfig(tp=args.tp, gradient_compression=args.grad_compression)

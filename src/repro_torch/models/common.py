@@ -55,6 +55,20 @@ def rmsnorm(params: dict, x: Tensor, eps: float = 1e-6) -> Tensor:
     return (y * params["scale"]).to(x.dtype)
 
 
+def layernorm_init(d: int, device, lead=()) -> dict:
+    return {"scale": torch.ones(*lead, d, device=device),
+            "bias": torch.zeros(*lead, d, device=device)}
+
+
+def layernorm(params: dict, x: Tensor, eps: float = 1e-5) -> Tensor:
+    """In fp32 (the variance with ddof 0), cast back to ``x``'s dtype."""
+    x32 = x.to(torch.float32)
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mean), dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # rotary position embeddings (split-half rotation, fp32 angles)
 # ---------------------------------------------------------------------------
@@ -79,9 +93,22 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     return out.to(x.dtype)
 
 
+def sincos_positions(n: int, d: int, device=None) -> Tensor:
+    """Fixed sinusoidal embeddings (the whisper encoder's), (n, d) fp32:
+    ``[sin | cos]`` concatenated, not interleaved."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    angles = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # embeddings / unembedding / MLP
 # ---------------------------------------------------------------------------
+
+def embedding_init(gen: torch.Generator, vocab: int, d: int, device) -> dict:
+    return {"w": randn(gen, (vocab, d), device) * 0.02}
+
 
 def embed(params: dict, tokens: Tensor) -> Tensor:
     return params["w"][tokens]
@@ -107,6 +134,20 @@ def swiglu(params: dict, x: Tensor) -> Tensor:
     dt = x.dtype
     gate = F.silu(x @ params["w_gate"].to(dt))
     return (gate * (x @ params["w_in"].to(dt))) @ params["w_out"].to(dt)
+
+
+def gelu_mlp_init(gen: torch.Generator, d: int, f: int, device,
+                  lead=()) -> dict:
+    return {"w_in": lecun_init(gen, (*lead, d, f), device),
+            "b_in": torch.zeros(*lead, f, device=device),
+            "w_out": lecun_init(gen, (*lead, f, d), device, fan_in=f),
+            "b_out": torch.zeros(*lead, d, device=device)}
+
+
+def gelu_mlp(params: dict, x: Tensor) -> Tensor:
+    dt = x.dtype
+    h = gelu(x @ params["w_in"].to(dt) + params["b_in"].to(dt))
+    return h @ params["w_out"].to(dt) + params["b_out"].to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
 """Arch family -> model functions, tiny configs for CPU tests, and weights
 carried across from the JAX package.
 
-The port has the dense (qwen, deepseek), MoE (granite, llama4-scout), VLM
-(llama-3.2-vision), SSM (mamba2) and hybrid (recurrentgemma) families; the
-audio family (whisper) waits for a later slice (ROADMAP.md).
+The port has every family of the JAX package: dense (qwen, deepseek), MoE
+(granite, llama4-scout), VLM (llama-3.2-vision), SSM (mamba2), hybrid
+(recurrentgemma) and audio (whisper, an encoder-decoder).
 ``params_from_jax`` and ``train_state_from_jax`` carry the JAX package's
-params and training state across as numpy.
+params and training state across as numpy, every nested tree (whisper's
+``enc_layers`` and ``dec_layers`` too) with its paths and stacked axes.
 """
 from __future__ import annotations
 
@@ -35,9 +36,11 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         from repro_torch.models import ssd as m
     elif cfg.family == "hybrid":
         from repro_torch.models import rglru as m
+    elif cfg.family == "audio":
+        from repro_torch.models import whisper as m
     else:
-        raise NotImplementedError(f"{cfg.arch}: the {cfg.family} family is "
-                                  f"not ported yet (ROADMAP.md)")
+        raise NotImplementedError(f"{cfg.arch}: no model family "
+                                  f"{cfg.family!r}")
     return ModelApi(init_params=m.init_params, forward=m.forward,
                     train_loss=m.train_loss,
                     init_decode_state=m.init_decode_state,
@@ -106,6 +109,8 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
     if cfg.family == "ssm":
         changes.update(ssm_state=16, ssm_headdim=16, ssm_chunk=16,
                        n_heads=1, n_kv_heads=1)
+    if cfg.family == "audio":
+        changes.update(n_enc_layers=2, n_frames=24)
     if cfg.family == "vlm":
         changes.update(cross_period=5, n_layers=5, n_vision_tokens=16)
     return dataclasses.replace(cfg, **changes)

@@ -12,7 +12,9 @@ The engine drives a registered arch through its ``decode_step``:
     on CUDA) with a per-token l2 guarantee, and decode attends the
     compressed cache;
   * **modality frontends**: a request's ``frontend`` payloads (the VLM's
-    ``{"vision_embeds": (N_vision, D)}``) go to ``init_decode_state``.
+    ``{"vision_embeds": (N_vision, D)}``, whisper's
+    ``{"frames": (n_frames, D)}``) go to ``init_decode_state`` by name;
+    admitting a whisper request runs its encoder.
 
 The engine runs on ``device``, the card unless the caller passes
 ``device="cpu"``; the params must live there.
@@ -40,7 +42,7 @@ class Request:
     prompt: np.ndarray             # (S,) int32
     max_new_tokens: int
     # modality frontend payloads (stubs, as in the JAX package): VLM
-    # requests carry precomputed patch embeddings
+    # requests carry precomputed patch embeddings, whisper's frame embeddings
     frontend: Optional[dict] = None   # e.g. {"vision_embeds": (N, d)}
 
 
@@ -80,10 +82,11 @@ class ServeEngine:
     def _compress_kv(self, node):
         """Bounded KV quantization of every ``KVCache`` in the state (the
         dense family's stacked caches, the VLM's self-layer caches, the
-        hybrid's attention-layer ring buffers), found through its named
-        tuples and dicts; a state with none (an SSM's) is returned as it is.
-        The VLM's cross K/V (``vision_kv``, a plain tuple) stay raw, as the
-        JAX engine visits only ``KVCache`` nodes.  It recurses as a method:
+        hybrid's attention-layer ring buffers, whisper's decoder caches),
+        found through its named tuples and dicts; a state with none (an
+        SSM's) is returned as it is.  The cross K/V (the VLM's
+        ``vision_kv``, whisper's ``cross_kv``, plain tuples) stay raw, as
+        the JAX engine visits only ``KVCache`` nodes.  It recurses as a method:
         a nested recursive function would make a reference cycle through
         ``self`` that keeps the engine and its params alive until the
         cyclic garbage collector runs."""
@@ -128,7 +131,7 @@ class ServeEngine:
                        frontend: Optional[dict] = None) -> np.ndarray:
         """Same-length batched generation. prompts: (B, S) -> (B, max_new).
         ``frontend``: batched modality payloads, e.g.
-        {"vision_embeds": (B, N, D)}."""
+        {"vision_embeds": (B, N, D)} or {"frames": (B, F, D)}."""
         state, tok = self._start(prompts, frontend)
         out = np.zeros((prompts.shape[0], max_new), np.int32)
         for t in range(max_new):

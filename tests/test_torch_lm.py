@@ -327,13 +327,20 @@ def test_entry_points_run_on_the_card_by_default():
 
 
 def test_unported_archs_and_features_raise():
-    """whisper-medium and the audio family wait for a later slice."""
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("whisper-medium")
-    audio = dataclasses.replace(
-        registry.reduced_config(get_config("qwen2-1.5b")), family="audio")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.get_model(audio)
+    """Every arch of the JAX package is ported (whisper-medium, the audio
+    family, last); an unknown arch or family raises, and the transformer
+    module refuses a family that is not its own (the audio family has its
+    own module)."""
+    from repro.configs import ARCH_IDS
+    for arch in ARCH_IDS:
+        assert get_config(arch).arch == arch
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("not-an-arch")
+    other = dataclasses.replace(
+        registry.reduced_config(get_config("qwen2-1.5b")), family="vision")
+    with pytest.raises(NotImplementedError, match="no model family"):
+        registry.get_model(other)
+    audio = dataclasses.replace(other, family="audio")
     from repro_torch.models import transformer
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         transformer.init_params(audio, RunConfig(), torch.Generator(), "cpu")

@@ -213,6 +213,29 @@ def test_flash_kernel_matches_plain_bf16(cuda_device, b, s, t, h, kv, hd,
                                **FA_BF16_KERNEL_TOL)
 
 
+# whisper-medium's attention: the encoder's non-causal T = S = 1500 (a
+# ragged last key tile: 92 keys at a tile of 128, 28 at 64) and the cross
+# layers' 448 queries on the 1500 frames; 16 heads on 16 kv heads of 64
+WHISPER_SHAPES = [(1, 1500, 1500, 16, 16, 64), (2, 448, 1500, 16, 16, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,hd", WHISPER_SHAPES)
+def test_flash_kernel_matches_plain_at_whisper_shapes(cuda_device, b, s, t, h,
+                                                      kv, hd, dtype):
+    """Non-causal, group 1, hd 64: fp32 at ``FA_TOL``, bf16 against the
+    fp32 plain version on the same bf16 inputs, rounded to bf16, at
+    ``FA_BF16_KERNEL_TOL``."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _fa_inputs(b, s, t, h, kv, hd, seed=2))
+    got = t_fa.flash_attention(q, k, v, causal=False)
+    want = t_fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                      causal=False).to(dtype)
+    tol = FA_TOL if dtype == torch.float32 else FA_BF16_KERNEL_TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_zeroes_rows_no_key_reaches(cuda_device, dtype):
