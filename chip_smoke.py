@@ -72,6 +72,21 @@ Phases, each reported on its own lines:
    the rest damaged); and ``CompressOptions(tau=0.5, retries=3,
    chaos_seed=0)`` finishes with every chunk either the batch's bytes or a
    quarantined lossless verbatim chunk;
+   then the sharded path on the same model and field: a 4-shard mesh over
+   ``cuda:0`` repeated (25 stripes: 6 groups of 4 and a 1-stripe tail)
+   against the unsharded ``compress``, both profiled.  Gates: the sharded
+   archive's bytes equal the unsharded ones, and so do ``stream_compress``'s
+   with the mesh, in memory and on disk; the sharded compress launches
+   block_attention, quantize and gae_project as often as the unsharded one,
+   by wrapper count and by kernel name in the profile; every stage
+   function's outputs lie on the card; ``decompress(mesh=)`` within rtol
+   1e-5, atol 1e-6 of the single decode with every GAE block within tau;
+   ``fit_basis(mesh=)`` within 1e-3 of the main path's basis column by
+   column, up to sign; with two or more cards the same over the distinct
+   cards; ``python -m repro_torch.parallel.mesh_check --device cuda`` exits
+   0, and the launcher with one shard more than the cards exits 2 with the
+   device-count message.  Printed: the walls, device busy and idle share
+   of both compresses (a record; no gain is claimed);
 7. the CLIs as subprocesses: ``python -m repro_torch.launch.compress
    --dataset e3sm --quick --epochs-scale 0.25 --out <tmp> --verify`` and
    the same with ``--stream`` at once, then ``python -m
@@ -1179,11 +1194,12 @@ def device_union_ms(torch, prof) -> float:
     return total / 1e3
 
 
-def run_stream_path(torch, counters, comp, hb) -> None:
+def run_stream_path(torch, counters, comp, hb) -> tuple:
     """``stream_compress`` on the fitted S3D ``comp`` (basis fitted by the
     main path) against the batch ``compress``, in turns, with the six gates:
     bytes, kernels on the path, the guarantee, salvage, chaos (and, in
-    ``run_clis``, the CLIs)."""
+    ``run_clis``, the CLIs).  Returns the batch archive's bytes and the
+    streamed file's decode, which the mesh phase compares with."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1362,6 +1378,256 @@ def run_stream_path(torch, counters, comp, hb) -> None:
               f"{result.stats.total_retries()} retries "
               f"{json.dumps(result.stats.retries)}, quarantined "
               f"{result.quarantined}", flush=True)
+    return batch_blob, recon
+
+# ---------------------------------------------------------------------------
+# phase 6b: the sharded path over a mesh of devices
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4         # shards of the mesh over the one card, repeated
+MESH_MESSAGE = "wants {} shards but only {} device(s)"
+
+
+def device_calls_by_name(torch, prof, match: str) -> dict:
+    """Launches of each CUDA kernel whose name holds ``match`` that a
+    ``torch.profiler`` run recorded, keyed as ``device_ms_by_name`` keys
+    them."""
+    import re
+
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name:
+            found = re.search(r"\w*" + re.escape(match) + r"\w*", e.name)
+            key = found.group(0) if found else e.name
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+class ShardDevices:
+    """Records the device types of the tensors each ``_encode_frontend``
+    and ``_decode_backend`` call of ``core/exec.py`` takes and gives while
+    it is entered (the stage functions every shard and stripe runs)."""
+
+    def __init__(self, exec_mod):
+        self.exec_mod, self.calls = exec_mod, []
+
+    def _wrap(self, fn):
+        def recording(*args):
+            out = fn(*args)
+            outs = list(out[:1]) + list(out[1]) if isinstance(out, tuple) \
+                else [out]
+            self.calls.append({t.device.type for t in outs})
+            return out
+        return recording
+
+    def __enter__(self):
+        self.saved = (self.exec_mod._encode_frontend,
+                      self.exec_mod._decode_backend)
+        self.exec_mod._encode_frontend = self._wrap(self.saved[0])
+        self.exec_mod._decode_backend = self._wrap(self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.exec_mod._encode_frontend, self.exec_mod._decode_backend = \
+            self.saved
+
+
+def _mesh_subprocesses(torch, work) -> None:
+    """``mesh_check --device cuda`` and the launcher with one shard more
+    than the machine's cards, started together and left to run while
+    ``work()`` runs here: the check exits 0 with every check ok, the
+    launcher exits 2 with the device-count message."""
+    n_cards = torch.cuda.device_count()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               REPRO_MESH_CHECK_DEVICES=str(MESH_SHARDS))
+    runs = [["-m", "repro_torch.parallel.mesh_check", "--device", "cuda"],
+            ["-m", "repro_torch.launch.compress", "--dataset", "e3sm",
+             "--quick", "--mesh", str(n_cards + 1)]]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable] + args, env=env, cwd=ROOT,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for args in runs]
+    try:
+        work()
+        outs = [proc.communicate(timeout=300) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    (check_out, check_err), (cli_out, cli_err) = outs
+    try:
+        report = json.loads(check_out)
+    except json.JSONDecodeError:
+        report = {"ok": False}
+    print(f"mesh check: python -m repro_torch.parallel.mesh_check --device "
+          f"cuda: exit {procs[0].returncode} (both done {wall:.1f} s after "
+          f"their start); "
+          + "; ".join(f"{c['name']} {'ok' if c['ok'] else 'FAILED'} "
+                      f"({c['detail']})" for c in report.get("checks", [])),
+          flush=True)
+    if procs[0].returncode != 0 or not report.get("ok"):
+        raise CheckFailed(f"mesh_check failed: {check_out[-2000:]} "
+                          f"{check_err[-2000:]}")
+    want = MESH_MESSAGE.format(n_cards + 1, n_cards)
+    last = cli_err.strip().splitlines()[-1] if cli_err.strip() else ""
+    print(f"mesh launcher: {' '.join(runs[1])}: exit "
+          f"{procs[1].returncode}: {last}", flush=True)
+    if procs[1].returncode != 2 or want not in cli_err:
+        raise CheckFailed(f"launcher --mesh {n_cards + 1} exited "
+                          f"{procs[1].returncode} without {want!r}: "
+                          f"{cli_err[-2000:]}")
+
+
+def run_mesh_path(torch, counters, comp, hb, card, batch_blob,
+                  stream_recon) -> None:
+    """The sharded path on the fitted S3D ``comp`` (basis fitted by the main
+    path) and the same field: a ``MESH_SHARDS``-shard mesh over ``cuda:0``
+    repeated against the unsharded path (``batch_blob`` and
+    ``stream_recon``, the stream phase's batch archive and decode, are
+    the unsharded bytes and reconstruction), then over the distinct cards
+    where there are two or more; ``mesh_check`` and the launcher run as
+    subprocesses beside the untimed decode and basis checks."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import exec as exec_mod
+    from repro_torch.core.options import CompressOptions
+    from repro_torch.parallel import mesh_exec
+    from repro_torch.runtime import archive_io
+    from repro_torch.stream import stream_compress
+
+    t_phase = time.perf_counter()
+    cfg = comp.cfg
+    opts = CompressOptions(tau=TAU, chunk_hyperblocks=64)
+    spans = comp.stripe_spans(hb.shape[0], 64, with_gae=True)
+
+    def compress_profiled(options, recorder=None):
+        exec_mod.reset_stage_stats()
+        for c in counters.values():
+            c.reset()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if recorder is None:
+                archive = comp.compress(hb, options=options)
+            else:
+                with recorder:
+                    archive = comp.compress(hb, options=options)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return dict(
+            blob=archive_io.serialize_archive(archive), archive=archive,
+            wall=wall, busy=device_union_ms(torch, prof) / 1e3,
+            launches={n: counters[n].value for n in STREAM_KERNELS},
+            by_name={n: device_calls_by_name(torch, prof, n)
+                     for n in STREAM_KERNELS},
+            counts=exec_mod.counters(), stats=exec_mod.stage_stats())
+
+    def check_mesh(mesh, label, base):
+        groups, tail = mesh_exec.plan_shard_groups(
+            spans, mesh_exec.mesh_shards(mesh))
+        recorder = ShardDevices(exec_mod)
+        run = compress_profiled(opts.replace(mesh=mesh), recorder)
+        if run["blob"] != base["blob"]:
+            raise CheckFailed(f"{label}: the sharded archive differs from "
+                              f"the unsharded archive's bytes")
+        if run["launches"] != base["launches"] or \
+                run["by_name"] != base["by_name"] or \
+                not all(run["launches"].values()):
+            raise CheckFailed(f"{label}: launches {run['launches']} "
+                              f"{run['by_name']} against unsharded "
+                              f"{base['launches']} {base['by_name']}")
+        types = set().union(*recorder.calls) if recorder.calls else set()
+        # one _encode_frontend and one _decode_backend a stripe
+        if types != {comp.device.type} or \
+                len(recorder.calls) != 2 * len(spans):
+            raise CheckFailed(f"{label}: stage outputs on {types} in "
+                              f"{len(recorder.calls)} calls for "
+                              f"{len(spans)} stripes")
+        if run["counts"].get("mesh.sharded_groups", 0) != len(groups) or \
+                run["counts"].get("mesh.shards", 0) != len(mesh.devices):
+            raise CheckFailed(f"{label}: mesh counters {run['counts']}")
+        print(f"mesh {label}: {len(spans)} stripes as {len(groups)} groups "
+              f"of {len(mesh.devices)} and a tail of {len(tail)}; bytes = "
+              f"unsharded ({len(run['blob'])}); launches "
+              f"{json.dumps(run['launches'])} = unsharded, by name "
+              f"{json.dumps(run['by_name'])}; every stage output of "
+              f"{len(recorder.calls)} calls on {comp.device.type}",
+              flush=True)
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "s3d-mesh.rba")
+            t0 = time.perf_counter()
+            result = stream_compress(comp, hb, out_path=path,
+                                     options=opts.replace(mesh=mesh))
+            s_wall = time.perf_counter() - t0
+            with open(path, "rb") as f:
+                disk = f.read()
+        if archive_io.serialize_archive(result.archive) != base["blob"] or \
+                disk != base["blob"] or result.quarantined:
+            raise CheckFailed(f"{label}: the sharded stream's bytes differ "
+                              f"from the unsharded archive's")
+        print(f"mesh {label}: stream_compress bytes = unsharded in memory "
+              f"and on disk; {result.stats.n_items} items, wall "
+              f"{s_wall:.3f} s", flush=True)
+        return run
+
+    card_s = f"({card})" if card else ""
+    base = compress_profiled(opts)
+    if base["blob"] != batch_blob:
+        raise CheckFailed("the unsharded compress differs from the stream "
+                          "phase's batch archive")
+    mesh = mesh_exec.make_compress_mesh(devices=[comp.device] * MESH_SHARDS)
+    run = check_mesh(mesh, f"{MESH_SHARDS} x {mesh.devices[0]}", base)
+    for kind, r in (("unsharded", base), ("sharded", run)):
+        enc = r["stats"].get("ae_encode")
+        print(f"mesh compress {kind}: wall {r['wall']:.3f} s (profiled), "
+              f"device busy {r['busy'] * 1e3:.3f} ms (union), idle share "
+              f"{1 - r['busy'] / r['wall']:.4f}, ae_encode "
+              f"{enc.seconds:.3f} s {card_s}", flush=True)
+
+    def decode_and_basis():
+        # the sharded decode against the single decode, and tau on every
+        # block; the basis fitted over the mesh against the main path's
+        t0 = time.perf_counter()
+        sharded = comp.decompress(base["archive"], mesh=mesh)
+        t_sharded = time.perf_counter() - t0
+        errs = np.linalg.norm((hb - sharded).reshape(-1, cfg.gae_block_elems),
+                              axis=1)
+        diff = float(np.max(np.abs(sharded - stream_recon)))
+        print(f"mesh decompress: sharded {t_sharded:.3f} s (beside the "
+              f"subprocesses); max |diff| from the single decode "
+              f"{diff:.3e}; max GAE l2 {errs.max():.6f} (tau {TAU}) "
+              f"{card_s}", flush=True)
+        if not np.allclose(sharded, stream_recon, rtol=1e-5, atol=1e-6) or \
+                errs.max() > TAU * (1 + 1e-5):
+            raise CheckFailed(f"sharded decompress: max diff {diff}, max GAE "
+                              f"l2 {errs.max()}")
+        basis = comp.basis.copy()
+        try:
+            sharded_basis = comp.fit_basis(hb, mesh=mesh)
+        finally:
+            comp.basis = basis
+        align = np.abs(np.sum(basis * sharded_basis, axis=0))
+        print(f"mesh fit_basis: min |column alignment| with the "
+              f"single-device basis {align.min():.6f}", flush=True)
+        if align.min() <= 1 - 1e-3:
+            raise CheckFailed(f"fit_basis over the mesh: alignment "
+                              f"{align.min()}")
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:
+            check_mesh(mesh_exec.make_compress_mesh(n_cards),
+                       f"{n_cards} cards", base)
+        else:
+            print("mesh: one card, so the mesh ran over cuda:0 repeated "
+                  "only; a mesh of distinct cards is not measured",
+                  flush=True)
+
+    _mesh_subprocesses(torch, decode_and_basis)
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
 
 # ---------------------------------------------------------------------------
 # phase 8: the LM path (prefill and serving)
@@ -2740,7 +3006,10 @@ def main() -> int:
                                  comp, hb)
         launches = {(name, "float32"): launches[name] for name in
                     ("quantize", "block_attention", "gae_project")}
-        run_stream_path(torch, counters, comp, hb)
+        batch_blob, stream_recon = run_stream_path(torch, counters, comp, hb)
+        run_mesh_path(torch, counters, comp, hb, card, batch_blob,
+                      stream_recon)
+        del batch_blob, stream_recon
         del comp, hb
         run_clis()
         launches.update(run_lm_path(torch, dev, counters))

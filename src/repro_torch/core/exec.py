@@ -15,6 +15,10 @@ This module owns three things:
    guarantee was verified against is exactly the one the decoder
    reproduces.
 
+   ``run_compress_stage_sharded{,_async}`` and
+   ``run_decompress_stage_sharded`` run the same functions over a mesh of
+   devices, one stripe per shard (``repro_torch.parallel.mesh_exec``).
+
 2. **Stage timing / throughput counters** (``stage`` / ``stage_stats``)
    and gauges (``counter_add`` / ``counter_max``: queue depths, overlap
    seconds of the streaming scheduler).
@@ -34,6 +38,7 @@ import dataclasses
 import os
 import threading
 import time
+import weakref
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Iterable, NamedTuple, Optional
 
@@ -42,7 +47,7 @@ import torch
 
 from repro_torch.core import bae as bae_mod
 from repro_torch.core import hbae as hbae_mod
-from repro_torch.core.errors import TransientStageError
+from repro_torch.core.errors import ConfigError, TransientStageError
 from repro_torch.core.quantization import dequantize
 from repro_torch.kernels.quantize.ops import quantize_fused
 
@@ -457,3 +462,161 @@ def run_recon_stage(hbae_params: dict, bae_params: list,
     False)``)."""
     x = upload(hyperblocks, _device_of(hbae_params), np.float32)
     return _download(_recon_frontend(hbae_params, bae_params, x))
+
+
+# ---------------------------------------------------------------------------
+# the sharded stage path: one process over a mesh of devices
+# ---------------------------------------------------------------------------
+# Shard i of a group runs exactly what ``run_compress_stage_async`` runs on
+# one stripe, on ``mesh.devices[i]``: per-shard shapes equal per-stripe
+# shapes, so the kernels, their launches and their bits are the unsharded
+# path's.  Shards on one device share that device's one dispatch stream, so
+# the allocator argument above holds for them unchanged.  Params are
+# replicated once to each device of the mesh that does not hold them, and
+# the replicas are cached per (params, device): the counterpart of the JAX
+# package's ``P()`` replication and of its mesh-keyed program cache.  On the
+# device that holds the params the replica is the params themselves.
+
+class _Replica(NamedTuple):
+    refs: tuple          # weak references to the source leaves
+    versions: tuple      # their in-place version counters when copied
+    params: tuple        # (hbae_params, bae_params) on the target device
+
+
+_REPLICAS: dict = {}
+_REPLICA_LOCK = threading.Lock()
+
+
+def _tensor_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for key in sorted(tree) for t in _tensor_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [t for item in tree for t in _tensor_leaves(item)]
+    return [tree] if isinstance(tree, Tensor) else []
+
+
+def _moved(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {key: _moved(value, device) for key, value in tree.items()}
+    if isinstance(tree, list):
+        return [_moved(item, device) for item in tree]
+    if isinstance(tree, Tensor):
+        return tree.to(device)
+    return tree
+
+
+def replicate_params(hbae_params: dict, bae_params: list,
+                     device: torch.device) -> tuple[dict, list]:
+    """``(hbae_params, bae_params)`` on ``device``: the params themselves on
+    their own device, else a copy made once and cached until a source
+    tensor dies or is changed in place.  A device of another type than the
+    params' is a :class:`ConfigError`: nothing moves between the card and
+    the CPU."""
+    home = _device_of(hbae_params)
+    if device.type != home.type:
+        raise ConfigError(f"cannot replicate params on {home} to {device}: "
+                          f"a compress mesh stays on the compressor's "
+                          f"device type")
+    if device == home:
+        return hbae_params, bae_params
+    leaves = _tensor_leaves((hbae_params, bae_params))
+    key = (device, tuple(id(t) for t in leaves))
+    versions = tuple(t._version for t in leaves)
+    with _REPLICA_LOCK:
+        hit = _REPLICAS.get(key)
+        if hit is not None and hit.versions == versions and all(
+                ref() is t for ref, t in zip(hit.refs, leaves)):
+            return hit.params
+        for stale in [k for k, v in _REPLICAS.items()
+                      if any(ref() is None for ref in v.refs)]:
+            del _REPLICAS[stale]
+        params = (_moved(hbae_params, device),
+                  [_moved(p, device) for p in bae_params])
+        _REPLICAS[key] = _Replica(tuple(weakref.ref(t) for t in leaves),
+                                  versions, params)
+    counter_add("mesh.param_replicas")
+    return params
+
+
+def _shard_rows(n_rows: int, n_shards: int) -> int:
+    rows, rem = divmod(n_rows, n_shards)
+    if rem:
+        raise ConfigError(f"{n_rows} hyper-blocks do not split into "
+                          f"{n_shards} equal shards")
+    return rows
+
+
+def run_compress_stage_sharded_async(hbae_params: dict, bae_params: list,
+                                     stacked: np.ndarray, hb_bin: float,
+                                     bae_bin: float, mesh
+                                     ) -> list[StageHandles]:
+    """Dispatch the compress front-end for ONE shard group: ``stacked`` is
+    ``n_shards`` equal-width stripes on the hyper-block axis.  Every shard
+    is dispatched (``run_compress_stage_async`` on its stripe, with the
+    params replicated to its device) before any is fetched.  Returns one
+    ``StageHandles`` per shard, in shard order; pass each to
+    ``fetch_compress_stage``."""
+    rows = _shard_rows(stacked.shape[0], len(mesh.devices))
+    handles = []
+    for i, device in enumerate(mesh.devices):
+        h, b = replicate_params(hbae_params, bae_params, device)
+        handles.append(run_compress_stage_async(
+            h, b, stacked[i * rows:(i + 1) * rows], hb_bin, bae_bin))
+    return handles
+
+
+def run_compress_stage_sharded(hbae_params: dict, bae_params: list,
+                               stacked: np.ndarray, hb_bin: float,
+                               bae_bin: float, mesh) -> list[tuple]:
+    """The sharded compress front-end for one shard group, run to its end:
+    ``[(q_lh, [q_lb per stage], recon)]`` per shard, in shard order (the
+    JAX package returns their concatenation, which both of its callers
+    slice back into these).  Stage time is recorded under
+    ``ae_encode_sharded`` with ``calls`` = the shard count."""
+    n_shards = len(mesh.devices)
+    t0 = time.perf_counter()
+    out = [fetch_compress_stage(h) for h in run_compress_stage_sharded_async(
+        hbae_params, bae_params, stacked, hb_bin, bae_bin, mesh)]
+    record_stage("ae_encode_sharded", time.perf_counter() - t0,
+                 int(stacked.size), calls=n_shards)
+    counter_max("mesh.shards", n_shards)
+    counter_add("mesh.sharded_groups")
+    return out
+
+
+@torch.inference_mode()
+def run_decompress_stage_sharded(hbae_params: dict, bae_params: list,
+                                 q_lh: np.ndarray, q_lbs: list,
+                                 hb_bin: float, bae_bin: float, mesh
+                                 ) -> np.ndarray:
+    """Dequantize+decode back-end over the mesh: hyper-block rows are
+    zero-padded to an even shard split (padded rows decode to garbage and
+    are sliced off), every shard's decode is dispatched on its device
+    before any is downloaded.  ``q_lbs`` rows group ``k`` blocks a
+    hyper-block, so they are padded by ``pad * k`` rows and stay aligned
+    with ``q_lh``'s shard boundaries."""
+    n_shards = len(mesh.devices)
+    n = q_lh.shape[0]
+    pad = (-n) % n_shards
+    ks = [q.shape[0] // max(n, 1) for q in q_lbs]
+    if pad:
+        q_lh = np.concatenate(
+            [q_lh, np.zeros((pad,) + q_lh.shape[1:], q_lh.dtype)], axis=0)
+        q_lbs = [np.concatenate(
+            [q, np.zeros((pad * k,) + q.shape[1:], q.dtype)], axis=0)
+            for q, k in zip(q_lbs, ks)]
+    rows = (n + pad) // n_shards
+    t0 = time.perf_counter()
+    recons = []
+    for i, device in enumerate(mesh.devices):
+        h, b = replicate_params(hbae_params, bae_params, device)
+        lo, hi = i * rows, (i + 1) * rows
+        recons.append(_decode_backend(
+            h, b, upload(q_lh[lo:hi], device, np.int32),
+            [upload(q[lo * k:hi * k], device, np.int32)
+             for q, k in zip(q_lbs, ks)], hb_bin, bae_bin))
+    recon = np.concatenate([_download(r) for r in recons], axis=0)[:n]
+    record_stage("ae_decode_sharded", time.perf_counter() - t0,
+                 int(recon.size), calls=n_shards)
+    counter_max("mesh.shards", n_shards)
+    return recon

@@ -41,17 +41,29 @@ Tensor = torch.Tensor
 # PCA basis
 # ---------------------------------------------------------------------------
 
+def covariance(residuals: Tensor) -> Tensor:
+    """(N, D) residuals -> their (D, D) fp32 ``r^T r``.  Zero rows add
+    nothing, so a sum of these over row shards is the whole covariance
+    (``parallel.mesh_exec.fit_pca_basis_sharded``)."""
+    r = residuals.to(torch.float32)
+    return r.T @ r
+
+
+def basis_from_covariance(cov: Tensor) -> Tensor:
+    """U (D, D) with the eigenvectors of ``cov`` as COLUMNS, sorted by
+    descending eigenvalue.  Eigenvector signs are arbitrary, as with
+    ``jnp.linalg.eigh``."""
+    _, vecs = torch.linalg.eigh(cov)                  # ascending eigenvalues
+    return torch.flip(vecs, dims=[1])
+
+
 def fit_pca_basis(residuals: Tensor) -> Tensor:
     """PCA basis of block residuals.
 
     residuals: (N, D).  Returns U (D, D) with eigenvectors as COLUMNS, sorted
     by descending eigenvalue; coefficients are c = U^T r (paper Eq. 9).
-    Eigenvector signs are arbitrary, as with ``jnp.linalg.eigh``.
     """
-    r = residuals.to(torch.float32)
-    cov = r.T @ r                                     # (D, D)
-    _, vecs = torch.linalg.eigh(cov)                  # ascending eigenvalues
-    return torch.flip(vecs, dims=[1])
+    return basis_from_covariance(covariance(residuals))
 
 
 # ---------------------------------------------------------------------------

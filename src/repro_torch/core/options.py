@@ -5,8 +5,15 @@ so one options object means the same run in both packages.  The batch
 ``HierarchicalCompressor.compress`` reads ``tau`` and ``chunk_hyperblocks``
 and ignores the streaming and fault-tolerance fields, as the JAX one does;
 ``repro_torch.stream.stream_compress`` and the launcher route on them.
-``mesh`` (sharding) is not ported: ``compress`` raises ``ConfigError`` for
-it.
+
+The ``mesh`` field takes, as in the JAX package:
+
+* ``None``  — one device (the default),
+* ``int``   — shard over that many devices of a 1-D ``("hb",)`` mesh built
+  by ``repro_torch.parallel.mesh_exec.resolve_mesh`` at run time,
+* a mesh object — used as-is (``repro_torch.parallel.mesh_exec.
+  CompressMesh``); it must carry the hyper-block data axis ``MESH_AXIS``
+  (``"hb"``) and may not shard any other axis.
 
 Validation happens at CONSTRUCTION time and raises a typed
 :class:`~repro_torch.core.errors.ConfigError`, so a zero-width chunk fails
@@ -18,6 +25,11 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.core.errors import ConfigError
+
+#: Name of the hyper-block data axis every compress mesh must carry.  Lives
+#: here (not in ``parallel.mesh_exec``) so option validation imports no
+#: device code; ``mesh_exec`` re-exports it.
+MESH_AXIS = "hb"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,8 +48,8 @@ class CompressOptions:
     * ``retries``, ``stage_deadline_s``, ``chaos_seed`` — any one set arms
       the streaming retry → deadline → quarantine ladder
       (``fault_tolerant``); ``chaos_seed`` also injects seeded faults.
-    * ``mesh`` — the JAX package's sharding knob; validated, but refused by
-      ``compress`` (not ported).
+    * ``mesh`` — device mesh for the sharded stage path (see the module
+      docstring for the accepted forms).
     """
     tau: Optional[float] = None
     chunk_hyperblocks: int = 64
@@ -46,7 +58,7 @@ class CompressOptions:
     retries: Optional[int] = None
     stage_deadline_s: Optional[float] = None
     chaos_seed: Optional[int] = None
-    mesh: Optional[int] = None
+    mesh: Optional[object] = None     # None | int | CompressMesh
 
     def __post_init__(self):
         if not isinstance(self.chunk_hyperblocks, int) \
@@ -70,17 +82,52 @@ class CompressOptions:
         if self.stage_deadline_s is not None and not self.stage_deadline_s > 0:
             raise ConfigError(f"stage_deadline_s must be > 0, got "
                               f"{self.stage_deadline_s}")
-        if self.mesh is not None and (not isinstance(self.mesh, int)
-                                      or isinstance(self.mesh, bool)
-                                      or self.mesh < 1):
-            raise ConfigError(f"mesh must be None or a shard count >= 1, "
-                              f"got {self.mesh!r}")
+        self._validate_mesh()
+
+    def _validate_mesh(self) -> None:
+        mesh = self.mesh
+        if mesh is None:
+            return
+        if isinstance(mesh, bool):
+            raise ConfigError("mesh must be None, an int shard count, or a "
+                              "compress mesh — got a bool")
+        if isinstance(mesh, int):
+            if mesh < 1:
+                raise ConfigError(f"mesh shard count must be >= 1, got {mesh}")
+            return
+        # duck-typed (axis_names/shape), as the JAX package checks its Mesh
+        axis_names = getattr(mesh, "axis_names", None)
+        shape = getattr(mesh, "shape", None)
+        if axis_names is None or shape is None:
+            raise ConfigError(
+                f"mesh must be None, an int shard count, or a compress mesh, "
+                f"got {type(mesh).__name__}")
+        if MESH_AXIS not in axis_names:
+            raise ConfigError(
+                f"compress mesh is missing the hyper-block data axis "
+                f"{MESH_AXIS!r} (axes: {tuple(axis_names)}) — the stage "
+                f"pipeline shards over {MESH_AXIS!r} only")
+        for name in axis_names:
+            if name != MESH_AXIS and shape[name] != 1:
+                raise ConfigError(
+                    f"compress mesh axis {name!r} has size {shape[name]}; "
+                    f"only the {MESH_AXIS!r} data axis may be sharded "
+                    f"(size-1 auxiliary axes are fine)")
 
     def fault_tolerant(self) -> bool:
         """True when any fault-tolerance knob is set (retries / deadline /
         chaos) — the streaming path then arms the retry→quarantine ladder."""
         return (self.retries is not None or self.stage_deadline_s is not None
                 or self.chaos_seed is not None)
+
+    def mesh_shards(self) -> int:
+        """Requested shard count WITHOUT resolving devices (0 = unsharded);
+        a mesh object reports its ``hb``-axis size."""
+        if self.mesh is None:
+            return 0
+        if isinstance(self.mesh, int):
+            return self.mesh
+        return int(self.mesh.shape[MESH_AXIS])
 
     def replace(self, **changes) -> "CompressOptions":
         """Functional update (re-validates)."""

@@ -39,19 +39,7 @@ from repro_torch.core.errors import (ArchiveError, ChecksumMismatch, ChunkDamage
                                      ConfigError, DamageReport,
                                      GuaranteeUnsatisfiable, MalformedStream)
 from repro_torch.core.options import CompressOptions
-
-#: CompressOptions fields of the JAX package's paths that this package does
-#: not run yet (sharding).
-_UNPORTED_OPTIONS = ("mesh",)
-
-
-def unported_options(opts: CompressOptions) -> list[str]:
-    """The fields of ``opts`` that belong to paths not ported yet and are
-    not at their defaults; ``compress`` refuses options that have any."""
-    defaults = CompressOptions()
-    return [f for f in _UNPORTED_OPTIONS
-            if getattr(opts, f) != getattr(defaults, f)]
-
+from repro_torch.parallel import mesh_exec
 
 @dataclasses.dataclass
 class CompressorConfig:
@@ -323,12 +311,27 @@ class HierarchicalCompressor:
         return exec_mod.run_recon_stage(self.hbae_params, self._stage_params(),
                                         hyperblocks)
 
+    def _resolve_mesh(self, mesh):
+        """``mesh`` (anything ``parallel.mesh_exec.resolve_mesh`` takes) as a
+        ``CompressMesh`` of this compressor's device type, or ``None``."""
+        return mesh_exec.resolve_mesh(mesh, device=self.device)
+
     # -- PCA basis -----------------------------------------------------------
-    def fit_basis(self, hyperblocks: np.ndarray) -> np.ndarray:
+    def fit_basis(self, hyperblocks: np.ndarray, mesh=None) -> np.ndarray:
         """PCA basis of AE residuals at GAE block granularity, fit on the
-        device."""
+        device.
+
+        With a ``mesh`` (anything ``parallel.mesh_exec.resolve_mesh``
+        accepts) the D x D residual covariance is computed shard by shard
+        on the mesh's devices and summed — O(D^2) traffic whatever N — by
+        ``mesh_exec.fit_pca_basis_sharded``.
+        """
         recon = self.reconstruct_ae(hyperblocks)
         resid = self._gae_view(hyperblocks - recon)
+        resolved = self._resolve_mesh(mesh)
+        if resolved is not None:
+            self.basis = mesh_exec.fit_pca_basis_sharded(resid, resolved)
+            return self.basis
         with torch.inference_mode():
             basis = gae.fit_pca_basis(exec_mod.upload(resid, self.device))
         self.basis = basis.cpu().numpy()
@@ -380,6 +383,19 @@ class HierarchicalCompressor:
         return exec_mod.run_compress_stage(
             self.hbae_params, self._stage_params(), stripe,
             self.cfg.hb_bin, self.cfg.bae_bin)
+
+    def encode_group_device(self, group, hyperblocks: np.ndarray, mesh
+                            ) -> list[tuple]:
+        """Device half of one shard GROUP's encode: ``len(group)``
+        equal-width stripes, one a shard
+        (``parallel.mesh_exec.plan_shard_groups`` guarantees the alignment).
+        Returns per-stripe ``(q_lh, q_lbs, recon)`` tuples in span order —
+        what ``encode_stripe_device`` gives for each stripe, so the host
+        coders cannot tell the paths apart."""
+        start, stop = mesh_exec.group_slice(group)
+        return exec_mod.run_compress_stage_sharded(
+            self.hbae_params, self._stage_params(), hyperblocks[start:stop],
+            self.cfg.hb_bin, self.cfg.bae_bin, mesh)
 
     def encode_stripe_host(self, hb_start: int, stripe: np.ndarray,
                            q_lh: np.ndarray, q_lbs: list[np.ndarray],
@@ -459,12 +475,13 @@ class HierarchicalCompressor:
             chunk.n_hyperblocks, cfg.k, cfg.block_elems).copy()
 
     def prepare_compress(self, hyperblocks: np.ndarray,
-                         tau: Optional[float]) -> int:
+                         tau: Optional[float], mesh=None) -> int:
         """Shared compress preamble: fit the PCA basis if the caller asked
-        for a guarantee and none exists yet.  Returns ``gae_dim``."""
+        for a guarantee and none exists yet (sharded over ``mesh`` when one
+        is active).  Returns ``gae_dim``."""
         if tau is not None:
             if self.basis is None:
-                self.fit_basis(hyperblocks)
+                self.fit_basis(hyperblocks, mesh=mesh)
             return int(self.basis.shape[0])
         return 0
 
@@ -476,25 +493,36 @@ class HierarchicalCompressor:
         per-stripe stages pipelined and produces byte-identical chunks.
 
         Configuration comes in as one ``CompressOptions``.  The streaming and
-        fault-tolerance fields are not read here, as in the JAX package;
-        ``mesh`` (not ported) raises ``ConfigError``.
+        fault-tolerance fields are not read here, as in the JAX package.
+        With ``options.mesh`` set, aligned runs of stripes run as one shard
+        group each — one stripe a shard — and the archive stays
+        byte-identical to the single-device result (per-shard shapes equal
+        per-stripe shapes, so the floats are bit-equal, and chunk boundaries
+        never move).
         """
         opts = options if options is not None else CompressOptions()
-        unported = unported_options(opts)
-        if unported:
-            raise ConfigError(f"options {unported} are not ported to the "
-                              f"PyTorch compressor yet")
+        mesh = self._resolve_mesh(opts.mesh)
         tau = opts.tau
         n = hyperblocks.shape[0]
-        gae_dim = self.prepare_compress(hyperblocks, tau)
+        gae_dim = self.prepare_compress(hyperblocks, tau, mesh=mesh)
         spans = self.stripe_spans(n, opts.chunk_hyperblocks,
                                   with_gae=tau is not None)
 
-        # 1+2. device-resident AE front-end, one stripe per call (the stripe
-        # IS the archive chunk)
+        # 1+2. device-resident AE front-end.  Unsharded: one stripe per call
+        # (the stripe IS the archive chunk).  Sharded: aligned groups of
+        # ``n_shards`` stripes, one stripe a shard; the ragged tail takes
+        # the per-stripe path.
+        latents: list[tuple] = []
         with exec_mod.stage("ae_encode", hyperblocks.size):
-            latents = [self.encode_stripe_device(hyperblocks[s:s + w])
-                       for s, w in spans]
+            tail = spans
+            if mesh is not None:
+                groups, tail = mesh_exec.plan_shard_groups(
+                    spans, mesh_exec.mesh_shards(mesh))
+                for group in groups:
+                    latents.extend(self.encode_group_device(
+                        group, hyperblocks, mesh))
+            for s, w in tail:
+                latents.append(self.encode_stripe_device(hyperblocks[s:s + w]))
 
         # 3+4. GAE + entropy coding, chunk-parallel over stripes
         def encode_chunk(i: int) -> ArchiveChunk:
@@ -580,7 +608,7 @@ class HierarchicalCompressor:
                 pos += idx.size
         return q_lh, q_lbs, codes
 
-    def decompress(self, archive: Archive, strict: bool = True
+    def decompress(self, archive: Archive, strict: bool = True, mesh=None
                    ) -> Union[np.ndarray, tuple[np.ndarray, DamageReport]]:
         """Decode an archive back to hyper-blocks.
 
@@ -589,6 +617,13 @@ class HierarchicalCompressor:
         ``(reconstruction, DamageReport)``: damaged stripes decode from zeroed
         latents with no GAE correction (and no guarantee), every other stripe
         is digest-verified and still satisfies the per-block bound.
+
+        ``mesh`` (anything ``parallel.mesh_exec.resolve_mesh`` accepts) runs
+        the dequantize+decode back-end sharded over the hyper-block axis.  Its
+        shards see other batch shapes than the single-device decode, so its
+        floats can differ from it in the last ulp — well inside the
+        ``tau * (1 + 1e-5)`` slack every guarantee check carries.  Entropy
+        decode and GAE correction are unchanged.
         """
         cfg = self.cfg
         n, k, d = archive.n_hyperblocks, cfg.k, cfg.block_elems
@@ -672,11 +707,18 @@ class HierarchicalCompressor:
                 f"chunks cover {covered} hyper-blocks, archive declares {n}")
 
         # dequantize+decode back-end — the same function that produced the
-        # reconstruction the GAE encoder verified against
+        # reconstruction the GAE encoder verified against (over the mesh's
+        # devices when one is active)
+        resolved_mesh = self._resolve_mesh(mesh)
         with exec_mod.stage("ae_decode", archive.n_values):
-            recon = exec_mod.run_decompress_stage(
-                self.hbae_params, self.bae_params, q_lh, q_lbs,
-                cfg.hb_bin, cfg.bae_bin)
+            if resolved_mesh is not None:
+                recon = exec_mod.run_decompress_stage_sharded(
+                    self.hbae_params, self.bae_params, q_lh, q_lbs,
+                    cfg.hb_bin, cfg.bae_bin, resolved_mesh)
+            else:
+                recon = exec_mod.run_decompress_stage(
+                    self.hbae_params, self.bae_params, q_lh, q_lbs,
+                    cfg.hb_bin, cfg.bae_bin)
 
         if archive.gae_dim and gae_codes:
             with exec_mod.stage("gae_decode", archive.n_values):

@@ -20,8 +20,14 @@ and with ``--out`` finished chunk sections stream to disk as they complete
 (crash-safe ``<out>.partial``, atomic finalize; exit 3 when the streaming
 write fails).  The container is byte-identical to the batch path's.
 ``--retries``, ``--stage-deadline`` and ``--chaos`` arm its fault-tolerance
-ladder and need ``--stream``.  ``--mesh`` (sharding) is not ported: it is
-refused at parse time, before any training.
+ladder and need ``--stream``.
+
+``--mesh N`` runs the compress and both decompressions sharded over N
+devices (``repro_torch.parallel.mesh_exec``); the archive stays
+byte-identical to the single-device run.  A mesh the machine cannot hold
+(more shards than devices, as ``--mesh 2`` on one card) exits 2 before any
+training.  Several shards on one device are reached from Python, with
+``make_compress_mesh(devices=[...])``.
 """
 from __future__ import annotations
 
@@ -34,11 +40,10 @@ import numpy as np
 from repro_torch.core import exec as exec_mod
 from repro_torch.core.errors import ArchiveError, ConfigError
 from repro_torch.core.options import CompressOptions
-from repro_torch.core.pipeline import HierarchicalCompressor, unported_options
+from repro_torch.core.pipeline import HierarchicalCompressor
 from repro_torch.data import synthetic
 from repro_torch.data.blocks import nrmse
-
-_FLAGS = {"mesh": "--mesh"}
+from repro_torch.parallel.mesh_exec import resolve_mesh
 
 
 def _max_block_err(hyperblocks: np.ndarray, recon: np.ndarray,
@@ -85,7 +90,9 @@ def main(argv=None) -> int:
                     "faults into the live pipeline (implies fault "
                     "tolerance); the run must still honor tau")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="sharded stage programs: not ported yet, refused")
+                    help="run the stages sharded over an N-device mesh "
+                    "(hyper-block data axis); archives stay byte-identical "
+                    "to single-device runs")
     args = ap.parse_args(argv)
     if args.verify and not args.out:
         ap.error("--verify requires --out")
@@ -100,13 +107,13 @@ def main(argv=None) -> int:
             chaos_seed=args.chaos, mesh=args.mesh)
     except ConfigError as e:
         ap.error(str(e))
-    unported = unported_options(opts)
-    if unported:
-        ap.error(f"{', '.join(_FLAGS[f] for f in unported)}: not ported to "
-                 f"the PyTorch compressor yet")
     try:
         device = exec_mod.resolve_device(args.device)
     except RuntimeError as e:
+        ap.error(str(e))
+    try:
+        resolve_mesh(opts.mesh, device=device)  # fail fast on impossible meshes
+    except ConfigError as e:
         ap.error(str(e))
 
     cfg, hyperblocks = synthetic.make_dataset(args.dataset, quick=args.quick,
@@ -153,7 +160,7 @@ def main(argv=None) -> int:
                 print(f"  chunk {ci}: {result.quarantine_reasons.get(ci, '?')}")
     else:
         archive = comp.compress(hyperblocks, options=opts)
-    recon = comp.decompress(archive)
+    recon = comp.decompress(archive, mesh=opts.mesh)
     print("-- hot-path stage throughput --")
     print(exec_mod.stats_summary())
 
@@ -190,7 +197,9 @@ def main(argv=None) -> int:
               f"on-disk ratio {hyperblocks.size * 4 / nbytes:.1f}x)")
     if args.verify:
         try:
-            recon2 = comp.decompress(archive_io.read_archive(args.out))
+            # same mesh as the first decode: bit-exact comparability
+            recon2 = comp.decompress(archive_io.read_archive(args.out),
+                                     mesh=opts.mesh)
         except ArchiveError as e:
             print(f"ERROR: verification re-read failed: {e}", file=sys.stderr)
             return 3

@@ -47,11 +47,11 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core import exec as exec_mod
-from repro_torch.core.errors import ConfigError, TransientStageError
+from repro_torch.core.errors import TransientStageError
 from repro_torch.core.options import CompressOptions
 from repro_torch.core.pipeline import (Archive, ArchiveChunk,
-                                       HierarchicalCompressor,
-                                       unported_options)
+                                       HierarchicalCompressor)
+from repro_torch.parallel import mesh_exec
 from repro_torch.runtime.stream_writer import StreamingArchiveWriter
 from repro_torch.stream.scheduler import RetryPolicy, StageGraph, StageSpec, \
     StreamScheduler, StreamStats
@@ -103,11 +103,10 @@ def stream_compress(comp: HierarchicalCompressor, hyperblocks: np.ndarray,
     """Pipelined compress of ``hyperblocks``; byte-identical chunks to
     ``comp.compress(hyperblocks, options=options)``.
 
-    Configuration comes in as one ``CompressOptions``; ``mesh`` (not ported)
-    raises ``ConfigError``.  ``out_path`` and ``fsync_every`` are IO
-    concerns of THIS entry point, not compression semantics, so they stay
-    plain kwargs.  The host_encode stage runs ``codec_workers()`` workers,
-    the size of the codec pool it submits to.
+    Configuration comes in as one ``CompressOptions``.  ``out_path`` and
+    ``fsync_every`` are IO concerns of THIS entry point, not compression
+    semantics, so they stay plain kwargs.  The host_encode stage runs
+    ``codec_workers()`` workers, the size of the codec pool it submits to.
 
     When ``out_path`` is given, finished chunk sections stream into
     ``<out_path>.partial`` as they complete and the container is atomically
@@ -122,14 +121,18 @@ def stream_compress(comp: HierarchicalCompressor, hyperblocks: np.ndarray,
     that need a custom ``RetryPolicy`` or ``ChaosSpec``; permanently failing
     stripes are quarantined as lossless verbatim chunks so the run still
     finalizes with every hyper-block within tau.
+
+    With ``options.mesh`` set, aligned runs of ``n_shards`` stripes ride the
+    scheduler as ONE item each (one dispatch, one stripe a shard); the
+    ragged tail stays per-stripe.  The retry, deadline and quarantine
+    ladder works on a group item as on a stripe item (a quarantined group
+    becomes one verbatim chunk a stripe).  Chunk boundaries, chunk bytes
+    and the on-disk container are identical to the single-device stream.
     """
     opts = options if options is not None else CompressOptions()
-    unported = unported_options(opts)
-    if unported:
-        raise ConfigError(f"options {unported} are not ported to the "
-                          f"PyTorch compressor yet")
     tau = opts.tau
     queue_depth = opts.queue_depth
+    mesh = comp._resolve_mesh(opts.mesh)
 
     ft = fault_tolerance
     if ft is None and opts.fault_tolerant():
@@ -146,13 +149,29 @@ def stream_compress(comp: HierarchicalCompressor, hyperblocks: np.ndarray,
 
     cfg = comp.cfg
     n = hyperblocks.shape[0]
-    gae_dim = comp.prepare_compress(hyperblocks, tau)
+    gae_dim = comp.prepare_compress(hyperblocks, tau, mesh=mesh)
     spans = comp.stripe_spans(n, opts.chunk_hyperblocks,
                               with_gae=tau is not None)
     width = comp._chunk_width(opts.chunk_hyperblocks,
                               with_gae=tau is not None)
     chunks: list[Optional[ArchiveChunk]] = [None] * len(spans)
     quarantine_reasons: dict[int, str] = {}
+
+    # Scheduler items: one a DEVICE DISPATCH, each a list of
+    # (chunk_idx, span).  Unsharded: one stripe an item.  Sharded: an
+    # aligned group of n_shards stripes is one item; the ragged tail stays
+    # one stripe an item.
+    if mesh is not None:
+        groups, tail = mesh_exec.plan_shard_groups(
+            spans, mesh_exec.mesh_shards(mesh))
+        planned = groups + [[span] for span in tail]
+    else:
+        planned = [[span] for span in spans]
+    items: list[list] = []
+    ci = 0
+    for group in planned:
+        items.append([(ci + j, span) for j, span in enumerate(group)])
+        ci += len(group)
 
     writer: Optional[StreamingArchiveWriter] = None
     if out_path is not None:
@@ -161,43 +180,58 @@ def stream_compress(comp: HierarchicalCompressor, hyperblocks: np.ndarray,
             chunk_hyperblocks=width, gae_dim=gae_dim, spans=spans,
             fsync_every=fsync_every)
 
-    def dispatch(i: int, span: tuple) -> tuple:
-        start, n_hb = span
-        return span, exec_mod.run_compress_stage_async(
-            comp.hbae_params, comp._stage_params(),
-            hyperblocks[start:start + n_hb], cfg.hb_bin, cfg.bae_bin)
+    def dispatch(i: int, item: list) -> tuple:
+        if len(item) == 1:
+            _, (start, n_hb) = item[0]
+            return item, [exec_mod.run_compress_stage_async(
+                comp.hbae_params, comp._stage_params(),
+                hyperblocks[start:start + n_hb], cfg.hb_bin, cfg.bae_bin)]
+        start, stop = mesh_exec.group_slice([span for _, span in item])
+        handles = exec_mod.run_compress_stage_sharded_async(
+            comp.hbae_params, comp._stage_params(), hyperblocks[start:stop],
+            cfg.hb_bin, cfg.bae_bin, mesh)
+        exec_mod.counter_max("mesh.shards", len(item))
+        exec_mod.counter_add("mesh.sharded_groups")
+        return item, handles
 
     def transfer(i: int, payload):
         if isinstance(payload, _Quarantined):
             return payload                     # ride through to host_encode
-        span, handles = payload
-        return span, exec_mod.fetch_compress_stage(handles)
+        item, handles = payload
+        return [(ci, span, exec_mod.fetch_compress_stage(h))
+                for (ci, span), h in zip(item, handles)]
 
-    def quarantine_encode(i: int, exc: BaseException) -> ArchiveChunk:
-        start, n_hb = spans[i]
-        quarantine_reasons[i] = repr(exc)
-        return comp.encode_stripe_verbatim(start,
-                                           hyperblocks[start:start + n_hb])
+    def quarantine_encode(i: int, exc: BaseException) -> list:
+        out = []
+        for ci, (start, n_hb) in items[i]:
+            quarantine_reasons[ci] = repr(exc)
+            out.append((ci, comp.encode_stripe_verbatim(
+                start, hyperblocks[start:start + n_hb])))
+        return out
 
-    def host_encode(i: int, payload) -> ArchiveChunk:
+    def host_encode(i: int, payload) -> list:
         if isinstance(payload, _Quarantined):
             return quarantine_encode(i, payload.exc)
-        # ride the shared codec pool — same workers as batch map_parallel
-        (start, n_hb), (q_lh, q_lbs, recon) = payload
-        return exec_mod.pool_submit(
+        # ride the shared codec pool — same workers as batch map_parallel;
+        # a group item fans its stripes out across the pool at once
+        futures = [(ci, exec_mod.pool_submit(
             comp.encode_stripe_host, start, hyperblocks[start:start + n_hb],
-            q_lh, q_lbs, recon, tau, gae_dim).result()
+            q_lh, q_lbs, recon, tau, gae_dim))
+            for ci, (start, n_hb), (q_lh, q_lbs, recon) in payload]
+        return [(ci, f.result()) for ci, f in futures]
 
-    def sink(i: int, chunk: ArchiveChunk) -> int:
-        chunks[i] = chunk
-        if writer is not None:
-            try:
-                writer.append(i, chunk)
-            except OSError as e:
-                # transient disk errors ride the retry ladder; append is
-                # idempotent under retry (byte-identical re-append)
-                raise TransientStageError(
-                    f"sink append of chunk {i} failed: {e}") from e
+    def sink(i: int, encoded: list) -> int:
+        for ci, chunk in encoded:
+            chunks[ci] = chunk
+            if writer is not None:
+                try:
+                    writer.append(ci, chunk)
+                except OSError as e:
+                    # transient disk errors ride the retry ladder; append is
+                    # idempotent under retry (byte-identical re-append), so
+                    # a group item replays its already-durable chunks safely
+                    raise TransientStageError(
+                        f"sink append of chunk {ci} failed: {e}") from e
         return i
 
     retry = ft.retry if ft is not None else None
@@ -222,7 +256,7 @@ def stream_compress(comp: HierarchicalCompressor, hyperblocks: np.ndarray,
 
     bytes_written = 0
     try:
-        _, stats = StreamScheduler(graph, chaos=chaos).run(spans)
+        _, stats = StreamScheduler(graph, chaos=chaos).run(items)
     except BaseException:      # retry-boundary: abort the writer, re-raise
         if writer is not None:
             writer.abort()     # keep <out_path>.partial for tolerant salvage

@@ -5,8 +5,10 @@ and one BAE step).
 Both launchers exit 0 and print "verify OK"; the port exits 2 on a
 guarantee violation, 3 when the disk re-read raises ``ArchiveError`` or the
 streaming write fails, streams with ``--stream`` (and its fault-tolerance
-flags), and refuses ``--mesh`` (not ported) and the fault-tolerance flags
-without ``--stream`` at parse time, before it makes a dataset or trains.
+flags), and refuses a ``--mesh`` of more shards than the host's one CPU (the
+JAX launcher's device-count ``ConfigError`` on one device) and the
+fault-tolerance flags without ``--stream`` at parse time, before it makes a
+dataset or trains.
 """
 from __future__ import annotations
 
@@ -52,8 +54,8 @@ def test_port_and_jax_launchers_verify(tmp_path, capsys):
 def test_port_launcher_exits_2_on_a_guarantee_violation(monkeypatch, capsys):
     decompress = HierarchicalCompressor.decompress
 
-    def off_by_tau(self, archive, strict=True):
-        recon = decompress(self, archive, strict)
+    def off_by_tau(self, archive, strict=True, mesh=None):
+        recon = decompress(self, archive, strict, mesh)
         recon[0, 0, 0] += 2 * TAU
         return recon
 
@@ -102,10 +104,11 @@ def test_port_launcher_exits_3_when_the_streaming_write_fails(tmp_path,
     assert "container streamed to" not in out
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2"], ["--retries", "1"]])
-def test_port_launcher_refuses_unported_flags_at_parse_time(flags,
-                                                            monkeypatch,
-                                                            capsys):
+@pytest.mark.parametrize("flags,message", [
+    (["--mesh", "2"], "wants 2 shards but only 1 device(s)"),
+    (["--retries", "1"], "require --stream")])
+def test_port_launcher_refuses_impossible_mesh_and_stray_flags_at_parse_time(
+        flags, message, monkeypatch, capsys):
     def no_data(*args, **kwargs):
         raise AssertionError("the launcher made a dataset")
 
@@ -113,5 +116,4 @@ def test_port_launcher_refuses_unported_flags_at_parse_time(flags,
     with pytest.raises(SystemExit) as e:
         t_cli.main(ARGS + ["--device", "cpu"] + flags)
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err or "require --stream" in err
+    assert message in capsys.readouterr().err

@@ -51,7 +51,9 @@ PORT_MODULES = ("repro_torch.core.pipeline", "repro_torch.runtime.archive_io",
                 "repro_torch.train.loop", "repro_torch.data.tokens",
                 "repro_torch.runtime.grad_compress",
                 "repro_torch.runtime.checkpoint",
-                "repro_torch.runtime.failures", "repro_torch.launch.train")
+                "repro_torch.runtime.failures", "repro_torch.launch.train",
+                "repro_torch.parallel.mesh_exec",
+                "repro_torch.parallel.mesh_check")
 
 
 def test_importing_the_port_loads_no_jax():

@@ -128,9 +128,11 @@ def test_damage_report_matches_jax(pair):
     assert t_rep.summary() == j_rep.summary()
 
 
-def test_unported_options_raise(hb, pair):
+def test_mesh_of_more_shards_than_devices_raises(hb, pair):
+    """As the JAX package on one device: the host's one CPU cannot hold a
+    2-shard mesh (``make_compress_mesh(devices=...)`` repeats a device)."""
     _, tc, _, _ = pair
-    with pytest.raises(ConfigError, match="mesh"):
+    with pytest.raises(ConfigError, match="wants 2 shards but only 1"):
         tc.compress(hb, options=TOptions(tau=TAU, mesh=2))
 
 

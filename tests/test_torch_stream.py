@@ -366,9 +366,9 @@ def test_stream_compress_failure_keeps_salvageable_partial(comp_hb, tmp_path,
 # the port's own surface
 # ---------------------------------------------------------------------------
 
-def test_stream_compress_refuses_mesh(comp_hb):
+def test_stream_compress_mesh_of_more_shards_than_devices_raises(comp_hb):
     comp, hb = comp_hb
-    with pytest.raises(ConfigError, match="mesh"):
+    with pytest.raises(ConfigError, match="wants 2 shards but only 1"):
         stream_compress(comp, hb, options=_opts(mesh=2))
 
 
