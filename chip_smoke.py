@@ -152,7 +152,27 @@ Phases, each reported on its own lines:
    ``ResilientRunner`` with ``chaos_wrap`` on the card, which restores
    twice and ends where the uninterrupted run ends (bit for bit is
    printed; held within 1 % of the summed learning rate);
-10. one JSON line with every kernel's numbers (one row per kernel and
+10. the LMs data- and pipeline-parallel over a mesh of the card repeated
+   (``launch/mesh.py``, ``parallel/``), qwen2-1.5b at full width and depth
+   with seeded weights: (a) ``pipeline_apply`` of the 28 layers as 4 GPipe
+   stages of 7 over 4 x the card, 8 microbatches of 1 x 512 embedded
+   tokens in fp32 (gates: the output equals the 28-layer loop on each
+   microbatch within 1e-5 of its largest |value|; flash_attention launched
+   28 x 8 times; the permuted bytes (P - 1) x M x 512 x 1536 x 4); (b) the
+   GSPMD step (``make_train_step(mesh=)``, ``none``) of B 2 x S 2048 over
+   2 x the card against the one-device step on the same batch (gates: the
+   mean-reduced gradient within 1e-5 of each leaf's largest, every new
+   param within Adam's first-step bound, one all-reduce of the gradient
+   bytes + 4 for the loss, flash_attention 2 x 28); (c) two
+   ``axis_name="data"`` ``pca_ef`` steps at the same shape, each shard its
+   own error feedback (gates: the logged all-reduce bytes 4 x (sum of the
+   rank-32 coefficients + 256^2) at step 0's refresh and 4 x (the
+   coefficients) at step 1, whose ratio to the gradient bytes is
+   ``grad_compression`` but for the amortized covariance; the shards keep
+   one set of params); its peak memory is reckoned first and printed with
+   the measured one (S 1024 where the reckoning passes 76 GiB).  Printed:
+   walls, device busy, the bubble fraction 3/11, peak memory;
+11. one JSON line with every kernel's numbers (one row per kernel and
    dtype, and the train rows), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -2951,6 +2971,434 @@ def train_chaos(torch, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the LMs data- and pipeline-parallel over a mesh of devices
+# ---------------------------------------------------------------------------
+
+# qwen2-1.5b at full width and depth.  (a) GPipe: 28 layers as 4 stages of
+# 7 over the card repeated 4 times, 8 microbatches of 1 x 512 embedded
+# tokens, fp32.  (b) the GSPMD data-parallel step (``none``) and (c) the
+# axis_name step (``pca_ef``), each over a (2, 1) ("data", "model") mesh of
+# the card repeated: B 2 x S 2048, the LM head and CE in chunks of 512.
+PP_STAGES, PP_MICRO, PP_SEQ = 4, 8, 512
+DP_SHARDS, DP_SEQ = 2, 2048
+# (c)'s seq falls to 1024 where its reckoned peak would pass this
+DP_PEAK_GIB_MAX = 76.0
+# activations of one shard's forward and backward at 1 x 2048, reckoned
+DP_ACT_GIB_AT_2048 = 9.0
+GC_BLOCK, GC_RANK, GC_REFRESH = 256, 32, 50
+
+
+def _first_step_excess(torch, p, gj, gt, a, b, lr, chunk=1 << 24
+                       ) -> tuple:
+    """The largest |b - a| over ``tests/test_torch_train.py``'s Adam
+    first-step bound from param ``p`` with gradients ``gj`` and ``gt`` (the
+    two steps' new params ``a`` and ``b``), at learning rate ``lr``; in
+    float64 on ``b``'s device, ``chunk`` elements at a time (any of the
+    five may lie on the host).  Returns that ratio and, at the element
+    that sets it, |b - a| and the bound's three terms: the slope
+    ``lr eps / (g_min + eps)^2 |gt - gj|``, ``8 spacing(lr)`` and
+    ``2 spacing(|p| + lr)``."""
+    import numpy as np
+
+    dev = b.device
+    fixed = 8 * (np.spacing(np.float32(lr)).item())
+    worst, terms = 0.0, None
+    flat = [x.reshape(-1) for x in (p, gj, gt, a, b)]
+    for lo in range(0, flat[0].numel(), chunk):
+        p_, gj_, gt_, a_, b_ = (x[lo:lo + chunk].to(dev).double()
+                                for x in flat)
+        g_min = torch.where(torch.sign(gj_) == torch.sign(gt_),
+                            torch.minimum(gj_.abs(), gt_.abs()),
+                            torch.zeros_like(gj_))
+        near = (p_.abs() + lr).float()
+        spacing = (torch.nextafter(near, torch.full_like(near, math.inf))
+                   - near).double()
+        slope = lr * EPS / (g_min + EPS) ** 2 * (gt_ - gj_).abs()
+        ratio = (b_ - a_).abs() / (slope + fixed + 2 * spacing)
+        i = int(ratio.argmax())
+        if ratio[i].item() > worst or terms is None:
+            worst = ratio[i].item()
+            terms = {"diff": (b_ - a_).abs()[i].item(),
+                     "slope": slope[i].item(), "8 spacing(lr)": fixed,
+                     "2 spacing(|p|+lr)": 2 * spacing[i].item(),
+                     "p": p_[i].item()}
+    return worst, terms
+
+
+def _leaf_paths(tree, prefix="") -> list:
+    """The "/"-joined key paths of ``tree``'s leaves, in
+    ``optim.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree)
+                for q in _leaf_paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [q for i, x in enumerate(tree)
+                for q in _leaf_paths(x, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def run_parallel_path(torch, dev, counters) -> None:
+    """Phase 10: (a) GPipe, (b) the GSPMD step, (c) the axis_name step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import registry
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    params = registry.init_params(cfg, RunConfig(),
+                                  torch.Generator(dev).manual_seed(0), dev)
+    n_params = sum(_numel(params))
+    parallel_gpipe(torch, dev, counters, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    parallel_gspmd(torch, dev, counters, cfg)
+    parallel_axis_name(torch, dev, counters, cfg, n_params)
+    print(f"parallel: the phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def parallel_gpipe(torch, dev, counters, cfg, params) -> None:
+    """(a) The 28 layers as PP_STAGES stages over the card repeated, the
+    embedded tokens as PP_MICRO microbatches of 1 x PP_SEQ.  Gates: the
+    output equals the 28-layer loop on each microbatch within 1e-5 x its
+    largest |value|; flash_attention launched once per layer and
+    microbatch; the permuted bytes (P - 1) x M x 1 x PP_SEQ x d x 4."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import common, transformer
+    from repro_torch.parallel import collectives, pipeline
+    from repro_torch.train import optim
+
+    run = RunConfig()
+    gen = torch.Generator(dev).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (PP_MICRO, 1, PP_SEQ),
+                           generator=gen, device=dev)
+    positions = torch.arange(PP_SEQ, dtype=torch.int32, device=dev)[None]
+    per = cfg.n_layers // PP_STAGES
+
+    def layers(stack, h):
+        return common.apply_stack(
+            lambda hh, lp: transformer._self_layer(lp, cfg, run, hh,
+                                                   positions), h, stack)
+
+    stages = optim.tree_map(lambda x: x.reshape(PP_STAGES, per,
+                                                *x.shape[1:]),
+                            params["layers"])
+    mesh = make_mesh((PP_STAGES,), ("pipe",), [dev] * PP_STAGES)
+    with torch.inference_mode():
+        x = common.embed(params["embed"], tokens)
+        pipeline.pipeline_apply(layers, stages, x[:1], mesh=mesh)  # warm
+        for c in counters.values():
+            c.reset()
+        collectives.LOG.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline.pipeline_apply(layers, stages, x, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        flash = counters["flash_attention"].value
+        moved = collectives.LOG.summary()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pipeline.pipeline_apply(layers, stages, x, mesh=mesh)
+            torch.cuda.synchronize()
+        busy = device_union_ms(torch, prof)
+        worst = 0.0
+        for m in range(PP_MICRO):
+            want = layers(params["layers"], x[m])
+            scale = want.abs().max().item()
+            err = (out[m] - want).abs().max().item()
+            worst = max(worst, err / scale)
+    want_bytes = ((PP_STAGES - 1) * PP_MICRO * 1 * PP_SEQ * cfg.d_model
+                  * out.element_size())
+    bubble = pipeline.gpipe_bubble_fraction(PP_STAGES, PP_MICRO)
+    print(f"parallel gpipe: qwen2-1.5b, {cfg.n_layers} layers as "
+          f"{PP_STAGES} stages of {per} over {PP_STAGES} x {dev} (repeated), "
+          f"{PP_MICRO} microbatches of 1 x {PP_SEQ}, fp32: wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms (a second, profiled "
+          f"run), "
+          f"gpipe_bubble_fraction {bubble:.6f}; output against the "
+          f"{cfg.n_layers}-layer loop: largest error {worst:.3e} of the "
+          f"largest |value| (gate 1e-5); flash_attention launched {flash} "
+          f"(gate {cfg.n_layers * PP_MICRO}); permuted {moved}", flush=True)
+    if not worst <= 1e-5:
+        raise CheckFailed(f"gpipe: the pipeline's output is {worst:.3e} of "
+                          f"its scale from the sequential loop's")
+    if flash != cfg.n_layers * PP_MICRO:
+        raise CheckFailed(f"gpipe: flash_attention launched {flash} times, "
+                          f"not {cfg.n_layers * PP_MICRO}")
+    if moved["bytes"] != {"collective-permute": want_bytes}:
+        raise CheckFailed(f"gpipe: permuted {moved['bytes']}, not "
+                          f"{want_bytes} bytes")
+    if abs(bubble - 3 / 11) > 1e-12:
+        raise CheckFailed(f"gpipe: bubble fraction {bubble}")
+
+
+def _dp_setup(torch, dev, cfg, mode, seq):
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import loop, optim
+
+    run = RunConfig(ce_chunk=TRAIN_CE_CHUNK, gradient_compression=mode)
+    opt = optim.adamw(optim.warmup_cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                                   TRAIN_STEPS),
+                      weight_decay=0.01, max_grad_norm=1.0)
+    state = loop.init_train_state(torch.Generator(dev).manual_seed(0), cfg,
+                                  run, opt, dev)
+    corpus = SyntheticCorpus(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=DP_SHARDS, seed=0))
+    mesh = make_mesh((DP_SHARDS, 1), ("data", "model"), [dev] * DP_SHARDS)
+    return run, opt, state, corpus, mesh
+
+
+def parallel_gspmd(torch, dev, counters, cfg) -> None:
+    """(b) The GSPMD step (``none``) of B DP_SHARDS x S DP_SEQ over the card
+    repeated DP_SHARDS times, against the one-device step on the same
+    batch.  Gates: the mean-reduced gradient within 1e-5 of each leaf's
+    largest of the one-device gradient; every new param within Adam's
+    first-step bound of the one-device step's; one all-reduce of the loss
+    and every gradient leaf (their bytes + 4); flash_attention launched
+    once per layer and shard.  The one-device results wait on the host
+    while the mesh runs."""
+    from repro_torch.parallel import collectives
+    from repro_torch.train import loop, optim
+
+    run, opt, state, corpus, mesh = _dp_setup(torch, dev, cfg, "none",
+                                              DP_SEQ)
+    batch = corpus.batch_at(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, g_one = loop.value_and_grad(cfg, run)(state.params, batch)
+    g_one = [g.cpu() for g in optim.tree_leaves(g_one)]
+    one, m_one = loop.make_train_step(cfg, run, opt)(state, batch)
+    loss_one = float(m_one["loss"])
+    new_one = [p.cpu() for p in optim.tree_leaves(one.params)]
+    del one, m_one
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t0
+
+    step = loop.make_train_step(cfg, run, opt, mesh=mesh)
+    for c in counters.values():
+        c.reset()
+    collectives.LOG.reset()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, m = step(state, batch)
+    loss_dp = float(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flash = counters["flash_attention"].value
+    reduced = collectives.LOG.summary()
+    new_dp = optim.tree_leaves(new.params)
+    del new, m
+    torch.cuda.empty_cache()
+    # the gradient the mesh's optimizer took, for the bound
+    (_, g_dp), = loop.data_parallel_value_and_grad(
+        cfg, run, mesh)(state.params, batch).values()
+
+    leaves = optim.tree_leaves(state.params)
+    grad_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    g_dp = optim.tree_leaves(g_dp)
+    norms = [math.sqrt(sum(float(g.double().square().sum()) for g in gs))
+             for gs in (g_one, g_dp)]
+    clip = [min(1.0, 1.0 / (n + 1e-12)) for n in norms]
+    lr = float(optim.warmup_cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                            TRAIN_STEPS)(1))
+    worst_g = worst_p = 0.0
+    at = None
+    for path, p, gj, gt, a, b in zip(_leaf_paths(state.params), leaves,
+                                     g_one, g_dp, new_one, new_dp):
+        gj = gj.to(dev)
+        scale = gj.abs().max().item()
+        err = (gt - gj).abs().max().item()
+        worst_g = max(worst_g, err / scale if scale else err)
+        ratio, terms = _first_step_excess(
+            torch, p, gj * clip[0], gt * clip[1], a, b, lr)
+        if at is None or ratio > worst_p:
+            worst_p, at = ratio, (path, terms)
+        del gj
+    print(f"parallel gspmd: qwen2-1.5b, B {DP_SHARDS} x S {DP_SEQ} over "
+          f"{DP_SHARDS} x {dev} (repeated), none: loss {loss_dp:.6f} (one "
+          f"device {loss_one:.6f}); step wall {wall:.3f} s (the one-device "
+          f"gradient and step {t_one:.3f} s), peak memory {peak:.2f} GiB; "
+          f"gradients within {worst_g:.3e} of each leaf's largest (gate "
+          f"1e-5); new params at {worst_p:.4f} of Adam's first-step bound "
+          f"(gate 1; set in {at[0]} by {at[1]}); all-reduce {reduced} (gate {grad_bytes} gradient "
+          f"bytes + 4 for the loss, one op); flash_attention launched "
+          f"{flash} (gate {DP_SHARDS * cfg.n_layers})", flush=True)
+    if not worst_g <= 1e-5:
+        raise CheckFailed(f"gspmd: the reduced gradient is {worst_g:.3e} of "
+                          f"a leaf's largest from the one-device gradient")
+    if not worst_p <= 1.0:
+        raise CheckFailed(f"gspmd: a new param is {worst_p:.3f}x Adam's "
+                          f"first-step bound from the one-device step's")
+    if reduced != {"bytes": {"all-reduce": grad_bytes + 4},
+                   "counts": {"all-reduce": 1},
+                   "total_bytes": grad_bytes + 4}:
+        raise CheckFailed(f"gspmd: all-reduced {reduced}, not one op of "
+                          f"{grad_bytes} + 4 bytes")
+    if flash != DP_SHARDS * cfg.n_layers:
+        raise CheckFailed(f"gspmd: flash_attention launched {flash} times, "
+                          f"not {DP_SHARDS * cfg.n_layers}")
+    if not (math.isfinite(loss_dp)
+            and abs(loss_dp - loss_one) <= 1e-5 * abs(loss_one)):
+        raise CheckFailed(f"gspmd: loss {loss_dp} against the one device's "
+                          f"{loss_one}")
+    del new_dp, g_dp, state, g_one, new_one
+    torch.cuda.empty_cache()
+
+
+def _axis_name_peak_gib(n_params: int, seq: int) -> float:
+    """(c)'s reckoned peak: params and Adam's two moments, the optimizer's
+    copies of the three, two shards' old and new error feedback and the
+    approx gradient (11 trees of the params' size) at the update, plus
+    Adam's temporaries (~2 GiB: views of at most 256 MiB); or the state,
+    the old errors, two gradient trees and one shard's activations while
+    the gradients are taken."""
+    tree = 4 * n_params / 2 ** 30
+    act = DP_ACT_GIB_AT_2048 * seq / 2048
+    return max(11 * tree, 7 * tree + act) + 2.0      # + Adam's temporaries
+
+
+def _approx_gradient_excess(torch, dev, captured) -> float:
+    """The largest |approx - ref| over the leaf's largest |mean gradient|:
+    ``approx`` is the axis_name step's approx gradient (``captured``),
+    ``ref`` the one-worker ``compress_update`` of the shards' mean gradient
+    (summed in shard order, as ``all_reduce`` sums) with the step's new
+    basis, no refresh and the shards' mean error feedback, 0 before the
+    first step.  The coefficients are linear in the gradient, so the two
+    differ by rounding alone."""
+    from repro_torch.runtime import grad_compress
+
+    worst = 0.0
+    for gs, approx in zip(zip(*captured["grads"]), captured["approx"]):
+        mean = gs[0].to(dev)
+        for g in gs[1:]:
+            mean = mean + g.to(dev)
+        mean = mean / len(gs)
+        st = grad_compress.GradCompressionState(
+            basis=captured["basis"], error={"g": torch.zeros_like(mean)},
+            step=torch.ones((), dtype=torch.int32, device=dev))
+        ref = grad_compress.compress_update(
+            {"g": mean}, st, refresh_every=GC_REFRESH)[0]["g"]
+        scale = mean.abs().max().item()
+        err = (approx.to(dev) - ref).abs().max().item()
+        worst = max(worst, err / scale if scale else err)
+        del mean, ref
+    return worst
+
+
+def parallel_axis_name(torch, dev, counters, cfg, n_params) -> None:
+    """(c) The axis_name step (``pca_ef``): each shard its own error
+    feedback, the compressed all-reduce of the coefficients (and the
+    covariance at step 0's refresh), two steps.  Gates: the logged
+    all-reduce bytes 4 x (sum of cq elements + 256^2) on step 0 and
+    4 x (sum of cq elements) on step 1; their ratio to the raw gradient
+    bytes on step 1 equals ``metrics["grad_compression"]`` but for the
+    amortized covariance; step 0's approx gradient within 1e-5 of each
+    leaf's largest |mean gradient| of the one-worker ``compress_update``
+    of the shards' mean gradient (``_approx_gradient_excess``; the shards'
+    gradients and the approx gradient are kept on the host during step 0,
+    and the time of those copies is taken off its wall); finite losses;
+    flash_attention once per layer and shard a step."""
+    from repro_torch.parallel import collectives
+    from repro_torch.runtime import grad_compress
+    from repro_torch.train import loop, optim
+
+    seq = DP_SEQ
+    reckoned = _axis_name_peak_gib(n_params, seq)
+    if reckoned > DP_PEAK_GIB_MAX:
+        seq = DP_SEQ // 2
+        reckoned = _axis_name_peak_gib(n_params, seq)
+    run, opt, state, corpus, mesh = _dp_setup(torch, dev, cfg, "pca_ef",
+                                              seq)
+    states = loop.per_shard_states(state, mesh)
+    del state
+    step = loop.make_train_step(cfg, run, opt, mesh=mesh, axis_name="data")
+    cq = sum(-(-x.numel() // GC_BLOCK) * GC_RANK
+             for x in optim.tree_leaves(states[0].params))
+    raw_bytes = 4 * n_params
+    real = grad_compress.compress_update
+    captured = {"s": 0.0}
+
+    def recording(grads, gc_states, **kw):
+        out = real(grads, gc_states, **kw)
+        t0 = time.perf_counter()
+        captured["grads"] = [[g.cpu() for g in optim.tree_leaves(t)]
+                             for t in grads]
+        captured["approx"] = [g.cpu() for g in optim.tree_leaves(out[0][0])]
+        captured["basis"] = out[1][0].basis.clone()
+        captured["s"] = time.perf_counter() - t0
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i in range(2):
+        for c in counters.values():
+            c.reset()
+        collectives.LOG.reset()
+        grad_compress.compress_update = recording if i == 0 else real
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states, metrics = step(states, corpus.batch_at(i))
+            losses = [float(mm["loss"]) for mm in metrics]
+            torch.cuda.synchronize()
+        finally:
+            grad_compress.compress_update = real
+        rows.append((time.perf_counter() - t0 - (captured["s"] if i == 0
+                                                 else 0.0),
+                     losses, collectives.LOG.summary(),
+                     metrics[0]["grad_compression"],
+                     counters["flash_attention"].value))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del states, metrics
+    torch.cuda.empty_cache()
+    worst_c = _approx_gradient_excess(torch, dev, captured)
+    want = [4 * (cq + GC_BLOCK * GC_BLOCK), 4 * cq]
+    ratio = raw_bytes / rows[1][2]["total_bytes"]
+    slack = GC_BLOCK * GC_BLOCK / GC_REFRESH / cq
+    print(f"parallel axis_name: qwen2-1.5b, B {DP_SHARDS} x S {seq} over "
+          f"{DP_SHARDS} x {dev} (repeated), pca_ef rank {GC_RANK} in blocks "
+          f"of {GC_BLOCK}; reckoned peak {reckoned:.2f} GiB (S {DP_SEQ} "
+          f"unless above {DP_PEAK_GIB_MAX}); measured peak {peak:.2f} GiB; "
+          + "; ".join(f"step {i}: wall {w:.3f} s, losses "
+                      f"{' '.join(f'{x:.6f}' for x in ls)}, all-reduce "
+                      f"{r['bytes']} in {r['counts']} ops (gate {want[i]}), "
+                      f"grad_compression {g:.4f}, flash_attention {f}"
+                      for i, (w, ls, r, g, f) in enumerate(rows))
+          + f" (step 0's wall less {captured['s']:.3f} s of the check's "
+          f"host copies); raw gradient bytes / step 1's all-reduce bytes "
+          f"{ratio:.4f} against grad_compression {rows[1][3]:.4f} (apart "
+          f"by at most the amortized covariance, {slack:.3e}); step 0's "
+          f"approx gradient against the one-worker compress_update of the "
+          f"shards' mean gradient: {worst_c:.3e} of each leaf's largest "
+          f"|mean gradient| (gate 1e-5)", flush=True)
+    for i, (_, losses, reduced, _, flash) in enumerate(rows):
+        if reduced["bytes"] != {"all-reduce": want[i]}:
+            raise CheckFailed(f"axis_name step {i}: all-reduced "
+                              f"{reduced['bytes']}, not {want[i]} bytes")
+        if not all(math.isfinite(x) for x in losses):
+            raise CheckFailed(f"axis_name step {i}: losses {losses}")
+        if flash != DP_SHARDS * cfg.n_layers:
+            raise CheckFailed(f"axis_name step {i}: flash_attention "
+                              f"launched {flash} times")
+    if not abs(ratio / rows[1][3] - 1) <= slack + 1e-6:
+        raise CheckFailed(f"axis_name: the all-reduce's ratio {ratio} is not "
+                          f"grad_compression {rows[1][3]}")
+    if not worst_c <= 1e-5:
+        raise CheckFailed(f"axis_name: step 0's approx gradient is "
+                          f"{worst_c:.3e} of a leaf's largest |mean "
+                          f"gradient| from the one-worker compress_update's")
+    del captured
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -3015,6 +3463,7 @@ def main() -> int:
         launches.update(run_lm_path(torch, dev, counters))
         launches.update(run_whisper_path(torch, dev, counters))
         launches.update(run_train_path(torch, dev, counters, rows))
+        run_parallel_path(torch, dev, counters)
     except (CheckFailed, AssertionError) as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

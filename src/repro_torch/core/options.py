@@ -11,8 +11,8 @@ The ``mesh`` field takes, as in the JAX package:
 * ``None``  — one device (the default),
 * ``int``   — shard over that many devices of a 1-D ``("hb",)`` mesh built
   by ``repro_torch.parallel.mesh_exec.resolve_mesh`` at run time,
-* a mesh object — used as-is (``repro_torch.parallel.mesh_exec.
-  CompressMesh``); it must carry the hyper-block data axis ``MESH_AXIS``
+* a mesh object — used as-is (``repro_torch.launch.mesh.Mesh``, made by
+  ``parallel.mesh_exec.make_compress_mesh``); it must carry the hyper-block data axis ``MESH_AXIS``
   (``"hb"``) and may not shard any other axis.
 
 Validation happens at CONSTRUCTION time and raises a typed
@@ -58,7 +58,7 @@ class CompressOptions:
     retries: Optional[int] = None
     stage_deadline_s: Optional[float] = None
     chaos_seed: Optional[int] = None
-    mesh: Optional[object] = None     # None | int | CompressMesh
+    mesh: Optional[object] = None     # None | int | Mesh over "hb"
 
     def __post_init__(self):
         if not isinstance(self.chunk_hyperblocks, int) \

@@ -313,7 +313,7 @@ class HierarchicalCompressor:
 
     def _resolve_mesh(self, mesh):
         """``mesh`` (anything ``parallel.mesh_exec.resolve_mesh`` takes) as a
-        ``CompressMesh`` of this compressor's device type, or ``None``."""
+        1-D ``Mesh`` of this compressor's device type, or ``None``."""
         return mesh_exec.resolve_mesh(mesh, device=self.device)
 
     # -- PCA basis -----------------------------------------------------------

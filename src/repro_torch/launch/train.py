@@ -8,12 +8,19 @@ train step -> checkpoint/restart -> failure-resilient loop.
 
 The flags and printed lines are the JAX package's (``resumed at step N``,
 ``[event] {...}``, ``done: steps a->b  loss=...  ... tok/s  restores=...``),
-plus ``--device``.  SIGTERM and SIGINT checkpoint at the next step boundary
-and stop.  ``--tp`` above 1 (tensor parallelism) is not ported and is refused
-at parse time (exit 2), as are the vlm and audio families: their batches
-need a frontend (``vision_embeds``, ``frames``) that the token pipeline does
-not make.  ``--resume`` reads a step directory written by this
-driver or by the JAX package's (``runtime.checkpoint``).
+plus ``--device``.  As the JAX launcher, it builds the host mesh
+``make_host_mesh(model=--tp)`` over the visible cards, or over ``--device``
+(one device, or a comma-separated list where a device may repeat:
+``--device cuda:0,cuda:0`` runs two data shards on one card), and steps in
+the data-parallel GSPMD mode (``train.loop``); ``--batch`` must split over
+the data shards (exit 2).  On one device the step is the one-device step.
+The moe family trains on one device: over more data shards it exits 2.
+SIGTERM and SIGINT checkpoint at the next step boundary and stop.  ``--tp``
+above 1 (tensor parallelism) waits for its slice and is refused at parse
+time (exit 2), as are the vlm and audio families: their batches need a
+frontend (``vision_embeds``, ``frames``) that the token pipeline does not
+make.  ``--resume`` reads a step directory written by this driver or by the
+JAX package's (``runtime.checkpoint``).
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.exec import resolve_device
 from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+from repro_torch.launch.mesh import dp_size, make_host_mesh
 from repro_torch.launch.serve import FRONTENDS
 from repro_torch.models.registry import reduced_config
 from repro_torch.runtime.checkpoint import CheckpointManager
@@ -57,11 +65,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the card)")
+                    help="torch device, or a comma-separated list of the "
+                         "data shards' devices (default: every card)")
     args = ap.parse_args(argv)
     if args.tp != 1:
-        ap.error(f"--tp {args.tp}: tensor parallelism is not ported "
-                 f"(one device, ROADMAP.md)")
+        ap.error(f"--tp {args.tp}: tensor parallelism is not ported; it "
+                 f"waits for its slice of the port (ROADMAP.md §1)")
 
     cfg = get_config(args.arch)
     if cfg.family in FRONTENDS:
@@ -72,13 +81,28 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.reduced:
         cfg = reduced_config(cfg)
     run = RunConfig(tp=args.tp, gradient_compression=args.grad_compression)
-    device = resolve_device(args.device)
+    if args.device is None:
+        resolve_device()                    # no card: the error says so
+        devices = None                      # every visible card
+    else:
+        devices = args.device.split(",")
+    mesh = make_host_mesh(model=args.tp, devices=devices)
+    dp = dp_size(mesh)
+    if args.batch % dp:
+        ap.error(f"--batch {args.batch} does not split over the {dp} data "
+                 f"shards of the mesh")
+    if dp > 1 and cfg.family == "moe":
+        ap.error(f"--arch {args.arch}: the moe family trains over one data "
+                 f"shard (its routing is over the batch; ROADMAP.md §3, "
+                 f"divergence 10); {dp} shards given: pass one --device")
+    device = mesh.devices.flat[0]
 
     opt = optim.adamw(optim.warmup_cosine_schedule(args.lr, 20, args.steps),
                       weight_decay=0.01, max_grad_norm=1.0)
     state = init_train_state(torch.Generator(device).manual_seed(args.seed),
                              cfg, run, opt, device)
-    step_fn = make_train_step(cfg, run, opt, microbatches=args.microbatches)
+    step_fn = make_train_step(cfg, run, opt, microbatches=args.microbatches,
+                              mesh=mesh)
     corpus = SyntheticCorpus(TokenPipelineConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
         seed=args.seed))

@@ -8,9 +8,10 @@ stripes.  As in the JAX package, the mesh is ONE process over a mesh of
 devices; this module owns its three concerns:
 
 * **Mesh construction** (``make_compress_mesh`` / ``resolve_mesh``): a 1-D
-  ``CompressMesh`` over the hyper-block data axis ``MESH_AXIS`` (``"hb"``).
-  It carries ``axis_names`` and ``shape`` as a ``jax.sharding.Mesh`` does,
-  so ``CompressOptions`` validates either the same way.
+  ``launch.mesh.Mesh`` over the hyper-block data axis ``MESH_AXIS``
+  (``"hb"``).  It carries ``axis_names`` and ``shape`` as a
+  ``jax.sharding.Mesh`` does, so ``CompressOptions`` validates either the
+  same way.
 * **Stripe-to-shard span alignment** (``plan_shard_groups``): the stripe IS
   the archive chunk, so alignment is a span-planning problem, not a format
   change.  Consecutive equal-width stripes are grouped ``n_shards`` at a
@@ -31,7 +32,6 @@ partials in shard order, the counterpart of the JAX package's ``psum``
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
@@ -41,41 +41,14 @@ from repro_torch.core import exec as exec_mod
 from repro_torch.core import gae
 from repro_torch.core.errors import ConfigError
 from repro_torch.core.options import MESH_AXIS
+from repro_torch.launch.mesh import Mesh, check_device_type, make_mesh
+from repro_torch.parallel import collectives
 
 Span = tuple  # (hb_start, n_hyperblocks)
 
 # ---------------------------------------------------------------------------
 # mesh construction
 # ---------------------------------------------------------------------------
-
-@dataclasses.dataclass(frozen=True)
-class CompressMesh:
-    """A 1-D mesh over the hyper-block axis: shard *i* runs on
-    ``devices[i]``.  A device may appear several times (several shards on
-    one device; see ``make_compress_mesh``)."""
-    devices: tuple
-
-    def __post_init__(self):
-        object.__setattr__(self, "devices",
-                           tuple(_normalize(d) for d in self.devices))
-
-    @property
-    def axis_names(self) -> tuple:
-        return (MESH_AXIS,)
-
-    @property
-    def shape(self) -> dict:
-        return {MESH_AXIS: len(self.devices)}
-
-
-def _normalize(device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device without an index
-    becomes the current one, as the tensors placed there report it."""
-    d = torch.device(device)
-    if d.type == "cuda" and d.index is None and torch.cuda.is_available():
-        d = torch.device("cuda", torch.cuda.current_device())
-    return d
-
 
 def available_devices() -> list:
     """The distinct devices present: ``cuda:0 ... cuda:{n-1}`` when a card
@@ -87,8 +60,10 @@ def available_devices() -> list:
 
 
 def make_compress_mesh(n_shards: Optional[int] = None,
-                       devices: Optional[Sequence] = None) -> CompressMesh:
-    """1-D compress mesh over the hyper-block data axis.
+                       devices: Optional[Sequence] = None) -> Mesh:
+    """The compressor's mesh: a 1-D ``launch.mesh.Mesh`` over the
+    hyper-block data axis ``MESH_AXIS``; shard *i* runs on
+    ``mesh.devices[i]``.
 
     Without ``devices`` it takes the first ``n_shards`` distinct devices of
     ``available_devices()`` (``None``: all of them); fewer than 1 shard, or
@@ -103,54 +78,40 @@ def make_compress_mesh(n_shards: Optional[int] = None,
     ``len(devices)``.
     """
     if devices is not None:
-        devs = tuple(devices)
-        if n_shards is not None and int(n_shards) != len(devs):
+        devices = list(devices)
+        if n_shards is not None and int(n_shards) != len(devices):
             raise ConfigError(f"compress mesh wants {n_shards} shards but "
-                              f"names {len(devs)} device(s)")
-        if not devs:
-            raise ConfigError("compress mesh needs >= 1 shard, got 0")
-        mesh = CompressMesh(devs)
-        if len({d.type for d in mesh.devices}) != 1:
-            raise ConfigError(f"compress mesh mixes device types: "
-                              f"{[str(d) for d in mesh.devices]}")
-        return mesh
-    have = available_devices()
-    want = len(have) if n_shards is None else int(n_shards)
+                              f"names {len(devices)} device(s)")
+        want = len(devices)
+    else:
+        have = available_devices()
+        want = len(have) if n_shards is None else int(n_shards)
+        if want > len(have):
+            raise ConfigError(
+                f"compress mesh wants {want} shards but only {len(have)} "
+                f"device(s) are present (make_compress_mesh(devices=[...]) "
+                f"naming one device several times runs several shards on "
+                f"it)")
+        devices = have[:want]
     if want < 1:
         raise ConfigError(f"compress mesh needs >= 1 shard, got {want}")
-    if want > len(have):
-        raise ConfigError(
-            f"compress mesh wants {want} shards but only {len(have)} "
-            f"device(s) are present (make_compress_mesh(devices=[...]) "
-            f"naming one device several times runs several shards on it)")
-    return CompressMesh(tuple(have[:want]))
+    return make_mesh((want,), (MESH_AXIS,), devices)
 
 
-def check_device_type(mesh: CompressMesh, device) -> None:
-    """Raise :class:`ConfigError` unless every device of ``mesh`` is of
-    ``device``'s type: params are replicated across devices of one type,
-    never moved between the card and the CPU."""
-    want = torch.device(device).type
-    other = [str(d) for d in mesh.devices if d.type != want]
-    if other:
-        raise ConfigError(f"compress mesh devices {other} are not of the "
-                          f"compressor's device type {want!r}")
-
-
-def resolve_mesh(spec, device=None) -> Optional[CompressMesh]:
-    """Resolve a ``CompressOptions.mesh`` field to a ``CompressMesh``.
+def resolve_mesh(spec, device=None) -> Optional[Mesh]:
+    """Resolve a ``CompressOptions.mesh`` field to the compressor's mesh.
 
     ``None``, ``1`` and one-shard meshes resolve to ``None`` (one device:
-    the unsharded path is the byte-identity reference).  With ``device``
-    (the compressor's), a mesh of another device type is a
-    :class:`ConfigError`.
+    the unsharded path is the byte-identity reference).  A ``Mesh`` must be
+    1-D over ``MESH_AXIS``.  With ``device`` (the compressor's), a mesh of
+    another device type is a :class:`ConfigError`.
     """
     if spec is None:
         return None
     if isinstance(spec, int) and not isinstance(spec, bool):
         mesh = None if spec <= 1 else make_compress_mesh(spec)
-    elif isinstance(spec, CompressMesh):
-        mesh = spec if len(spec.devices) > 1 else None
+    elif isinstance(spec, Mesh) and spec.axis_names == (MESH_AXIS,):
+        mesh = spec if spec.devices.size > 1 else None
     else:
         raise ConfigError(f"cannot resolve a {type(spec).__name__} into a "
                           f"compress mesh")
@@ -159,8 +120,8 @@ def resolve_mesh(spec, device=None) -> Optional[CompressMesh]:
     return mesh
 
 
-def mesh_shards(mesh: Optional[CompressMesh]) -> int:
-    return 1 if mesh is None else len(mesh.devices)
+def mesh_shards(mesh: Optional[Mesh]) -> int:
+    return 1 if mesh is None else mesh.devices.size
 
 
 # ---------------------------------------------------------------------------
@@ -211,14 +172,15 @@ def group_slice(group: Sequence[Span]) -> tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 def fit_pca_basis_sharded(residuals: np.ndarray,
-                          mesh: CompressMesh) -> np.ndarray:
+                          mesh: Mesh) -> np.ndarray:
     """PCA basis of ``(N, D)`` residuals over the mesh.
 
     Rows are zero-padded to an even split (zero rows add nothing to
     ``r^T r``); shard *i* computes its rows' fp32 covariance on
     ``mesh.devices[i]``, every shard is dispatched before any partial is
     read, and the D x D partials are summed in shard order on
-    ``mesh.devices[0]`` — O(D^2) traffic whatever N.  The basis comes from
+    ``mesh.devices[0]`` by ``collectives.distributed_covariance`` — O(D^2)
+    traffic whatever N.  The basis comes from
     the same ``gae.basis_from_covariance`` the single-device fit runs.  The
     sum's order differs from one ``r^T r``, so the basis agrees with the
     single-device one up to column sign and rounding, not bit for bit.
@@ -231,10 +193,7 @@ def fit_pca_basis_sharded(residuals: np.ndarray,
         r = np.concatenate([r, np.zeros((pad, d), np.float32)], axis=0)
     rows = r.shape[0] // n_shards
     with exec_mod.stage("fit_basis_sharded", r.size), torch.inference_mode():
-        partials = [gae.covariance(exec_mod.upload(
-            r[i * rows:(i + 1) * rows], dev))
-            for i, dev in enumerate(mesh.devices)]
-        cov = partials[0]
-        for part in partials[1:]:
-            cov = cov + part.to(cov.device)
+        cov = collectives.distributed_covariance(
+            exec_mod.upload(r[i * rows:(i + 1) * rows], dev)
+            for i, dev in enumerate(mesh.devices))
         return gae.basis_from_covariance(cov).cpu().numpy()

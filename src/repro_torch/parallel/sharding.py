@@ -1,0 +1,318 @@
+"""Partition rules and placement: which mesh axis each dim of a tensor is
+split over, and the pieces that split gives each mesh coordinate.
+
+Mesh axes (``launch/mesh.py``): ``("data", "model")`` on one pod,
+``("pod", "data", "model")`` across pods.  The batch shards over
+``("pod", "data")`` (data parallelism), weights over ``"model"`` (tensor or
+expert parallelism).  The rules are the JAX package's, copied: the port
+imports nothing of it.
+
+``shard_tensor`` and ``unshard`` take the place of ``NamedSharding`` and
+``jax.device_put``: the pieces of a tensor are exactly the
+``addressable_shards`` data a ``NamedSharding`` with the same spec gives
+over a JAX mesh of the same shape.  The activation constraints
+(``constrain``, ``activation_sharding``) wait for tensor parallelism.
+"""
+from __future__ import annotations
+
+import re
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.launch.mesh import Mesh, check_device_type
+
+Tensor = torch.Tensor
+
+
+class PartitionSpec(tuple):
+    """One entry per dim: an axis name, a tuple of axis names (the dim is
+    split over their product, the first axis major) or ``None``
+    (replicated).  A one-name tuple reads as the name, as JAX normalizes
+    it."""
+
+    def __new__(cls, *parts):
+        def norm(p):
+            if isinstance(p, (tuple, list)):
+                p = tuple(p)
+                return p[0] if len(p) == 1 else p
+            return p
+        return super().__new__(cls, tuple(norm(p) for p in parts))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+# ---------------------------------------------------------------------------
+# parameter partition rules
+# ---------------------------------------------------------------------------
+
+# (regex over the param path, spec WITHOUT the scan-stack leading axis)
+_PARAM_RULES: list[tuple[str, Optional[P]]] = [
+    (r"embed/w$",            P("model", None)),          # (V, D) vocab-sharded
+    (r"unembed/w$",          P(None, "model")),          # (D, V)
+    (r"pos_embed/w$",        P(None, None)),
+    (r"(wq|wk|wv)$",         P(None, "model", None)),    # (D, H, hd) head-sharded
+    (r"wo$",                 P("model", None, None)),    # (H, hd, D)
+    (r"(bq|bk|bv)$",         P("model", None)),
+    # MoE rules MUST precede the generic ffn rules (longest-match-first).
+    (r"moe/router$",         P(None, None)),
+    (r"moe/shared/(w_gate|w_in)$", P(None, "model")),    # shared expert (D, F)
+    (r"moe/shared/w_out$",   P("model", None)),
+    (r"moe/(w_gate|w_in)$",  P("model", None, None)),    # (E, D, F) EP
+    (r"moe/w_out$",          P("model", None, None)),    # (E, F, D) EP
+    (r"moe_fs/(w_gate|w_in)$", P(None, None, "model")),  # E % tp != 0: shard F
+    (r"moe_fs/w_out$",       P(None, "model", None)),
+    (r"(w_gate|w_in)$",      P(None, "model")),          # (D, F)
+    (r"w_out$",              P("model", None)),          # (F, D)
+    (r"(w_x|w_gate_branch)$", P(None, "model")),         # RG-LRU (D, lru)
+    (r"(conv/w|conv/b)$",    P(None, "model")),          # (cw, lru)
+    (r"lru/(alpha|in_gate/w|rec_gate/w)$", P(None, "model")),
+    (r"lru/(in_gate|rec_gate)/b$", P("model",)),
+    (r"lru_out$",            P("model", None)),          # (lru, D)
+    (r"ssd/in_proj$",        P(None, "model")),          # (D, d_inner+...)
+    (r"ssd/out_proj$",       P("model", None)),          # (d_inner, D)
+    (r"ssd/conv_w$",         P(None, "model")),
+    (r"ssd/(A_log|dt_bias|D|norm_scale)$", P("model",)),
+    (r"(scale|bias|b_in|b_out|gate)$", None),            # norms / biases: replicated
+]
+
+SCANNED_PREFIXES = ("layers", "triples", "groups", "selfs", "enc_layers",
+                    "dec_layers", "tail")
+
+
+def param_spec_for_path(path: str, ndim: int, *, scanned: int = 0) -> P:
+    """Match a parameter path to its PartitionSpec; prepend one unsharded axis
+    per stacked-layer level (``scanned`` — the VLM has nested groups/selfs
+    stacks = 2); fall back to replication."""
+    for pattern, spec in _PARAM_RULES:
+        if re.search(pattern, path):
+            parts = list(spec) if spec is not None else []
+            break
+    else:
+        parts = []
+    parts = [None] * scanned + parts
+    parts = parts[:ndim] + [None] * (ndim - len(parts))
+    return P(*parts)
+
+
+def _map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over the leaves of nested dicts, lists and tuples
+    (``NamedTuple``s rebuilt); ``None`` stays ``None``."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_with_path(fn, v, path + (str(i),))
+                            for i, v in enumerate(tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn("/".join(path), tree)
+
+
+def _shape(leaf) -> tuple:
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def param_partition_specs(params, scanned_prefixes: tuple = SCANNED_PREFIXES,
+                          *, fsdp_axis: Optional[str] = None,
+                          fsdp_size: int = 0, min_fsdp_elems: int = 65536,
+                          tp_size: int = 0):
+    """PartitionSpec tree matching ``params`` (the port's param tree, whose
+    paths are the JAX package's).
+
+    Leaves under any of ``scanned_prefixes`` carry a leading stacked-layer
+    axis that is never sharded.  ``tp_size`` > 1 turns on the MoE fallback:
+    where the expert count does not divide the model axis (granite: 40 %
+    16 != 0), the per-expert ffn dim is sharded instead of the expert axis.
+    ``fsdp_axis`` (fully sharded params) additionally shards the first
+    unsharded feature dim divisible by ``fsdp_size`` of every leaf with at
+    least ``min_fsdp_elems`` elements; the stacked-layer axis is never
+    chosen.
+    """
+    def spec(p: str, leaf) -> P:
+        shape = _shape(leaf)
+        n_stack = sum(seg in scanned_prefixes for seg in p.split("/"))
+        parts = list(param_spec_for_path(p, len(shape), scanned=n_stack))
+        if tp_size > 1 and re.search(r"moe/w_(gate|in|out)$", p):
+            e_dim = n_stack
+            if shape[e_dim] % tp_size != 0:
+                parts[e_dim] = None
+                f_dim = len(parts) - (2 if p.endswith("w_out") else 1)
+                parts[f_dim] = "model"
+        if (fsdp_axis and fsdp_size > 1 and len(shape) >= 2
+                and int(np.prod(shape)) >= min_fsdp_elems):
+            for i in range(n_stack, len(parts)):
+                if parts[i] is None and shape[i] % fsdp_size == 0:
+                    parts[i] = fsdp_axis
+                    break
+        return P(*parts)
+
+    return _map_with_path(spec, params)
+
+
+def batch_spec(multi_pod: bool) -> P:
+    return P(("pod", "data") if multi_pod else ("data",), None)
+
+
+# ---------------------------------------------------------------------------
+# decode-state partition rules
+# ---------------------------------------------------------------------------
+
+def decode_state_specs(state_shapes, multi_pod: bool, *, batch: int,
+                       dp_size: int, seq_len: int = 0, tp_size: int = 16):
+    """PartitionSpec tree for a model's decode state (leaves with a
+    ``shape``: tensors, meta tensors; ints read as 0-dim).
+
+    The rules are SHAPE-driven, as the JAX package's:
+
+      * a leaf with an axis == ``seq_len`` -> KV-style cache
+        (..., B, S, KV, hd): dp on the batch axis, "model" on the KV-head
+        axis where it divides tp, hd replicated;
+      * any other leaf with an axis == ``batch`` -> per-batch recurrent
+        state: dp on the batch axis, "model" on the first later axis
+        divisible by tp;
+      * everything else (positions, scalars) -> replicated.
+
+    When ``batch < dp_size`` the data axis cannot shard the batch: KV
+    caches shard the sequence axis over it instead (sequence parallelism)
+    and other per-batch state is replicated.
+    """
+    dp = ("pod", "data") if multi_pod else ("data",)
+    seq_shard = batch < dp_size
+
+    def spec(_path, leaf) -> P:
+        shape = _shape(leaf)
+        ndim = len(shape)
+        if ndim == 0:
+            return P()
+        parts: list = [None] * ndim
+        s_idx = next((i for i, d in enumerate(shape)
+                      if seq_len and d == seq_len), None)
+        b_idx = next((i for i, d in enumerate(shape) if d == batch), None)
+        if s_idx is not None and ndim >= 3:
+            kv_idx = s_idx + 1 if s_idx + 1 < ndim else None
+            if seq_shard:
+                parts[s_idx] = dp
+            elif b_idx is not None and b_idx < s_idx:
+                parts[b_idx] = dp
+            if kv_idx is not None and shape[kv_idx] % tp_size == 0:
+                parts[kv_idx] = "model"
+            return P(*parts)
+        if b_idx is not None and ndim >= 2:
+            if not seq_shard:
+                parts[b_idx] = dp
+            for i in range(b_idx + 1, ndim):
+                if shape[i] % tp_size == 0:
+                    parts[i] = "model"
+                    break
+        return P(*parts)
+
+    return _map_with_path(spec, state_shapes)
+
+
+# ---------------------------------------------------------------------------
+# placement
+# ---------------------------------------------------------------------------
+
+def _dim_axes(spec, ndim: int, mesh: Mesh) -> list:
+    """For each dim, the mesh axes (a tuple, maybe empty) it is split
+    over."""
+    spec = tuple(spec)
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than the tensor's "
+                         f"{ndim} dims")
+    out, seen = [], set()
+    for entry in spec + (None,) * (ndim - len(spec)):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        for a in axes:
+            if a not in mesh.axis_names or a in seen:
+                raise ValueError(f"spec {spec}: axis {a!r} is not in the "
+                                 f"mesh {mesh.axis_names} or is used twice")
+            seen.add(a)
+        out.append(axes)
+    return out
+
+
+def _split(axes: tuple, coord: tuple, mesh: Mesh) -> tuple[int, int]:
+    """(index of ``coord``'s piece, number of pieces) along a dim split
+    over ``axes``."""
+    idx, k = 0, 1
+    for a in axes:
+        i = mesh.axis_names.index(a)
+        idx = idx * mesh.devices.shape[i] + coord[i]
+        k *= mesh.devices.shape[i]
+    return idx, k
+
+
+def shard_tensor(t: Tensor, spec, mesh: Mesh) -> np.ndarray:
+    """The piece of ``t`` each mesh coordinate holds under ``spec``, on the
+    coordinate's device: an object ndarray of the mesh's shape.
+
+    A dim split k ways must be a multiple of k (a ``ValueError`` else, as
+    JAX refuses it).  On ``t``'s own device a piece is a view of ``t``; to
+    another device it is copied once per (device, piece), whatever the
+    number of coordinates holding it.
+    """
+    check_device_type(mesh, t.device)
+    dim_axes = _dim_axes(spec, t.ndim, mesh)
+    home = torch.device(t.device)
+    pieces = np.empty(mesh.devices.shape, dtype=object)
+    copies: dict = {}
+    for coord in np.ndindex(mesh.devices.shape):
+        piece, bounds = t, []
+        for dim, axes in enumerate(dim_axes):
+            if not axes:
+                continue
+            idx, k = _split(axes, coord, mesh)
+            if t.shape[dim] % k:
+                raise ValueError(f"spec {tuple(spec)} splits dim {dim} of "
+                                 f"shape {tuple(t.shape)} {k} ways, which "
+                                 f"does not divide it")
+            c = t.shape[dim] // k
+            piece = piece.narrow(dim, idx * c, c)
+            bounds.append((dim, idx))
+        dev = mesh.devices[coord]
+        if dev != home:
+            key = (dev, tuple(bounds))
+            if key not in copies:
+                copies[key] = piece.to(dev, non_blocking=True)
+            piece = copies[key]
+        pieces[coord] = piece
+    return pieces
+
+
+def unshard(pieces: np.ndarray, spec, mesh: Mesh) -> Tensor:
+    """The logical tensor of ``pieces`` (as ``shard_tensor`` gives them),
+    on the device of the piece at coordinate 0."""
+    pieces = np.asarray(pieces, dtype=object)
+    first = pieces.flat[0]
+    dim_axes = _dim_axes(spec, first.ndim, mesh)
+    return _join(pieces, dim_axes, mesh, 0, [0] * mesh.devices.ndim,
+                 first.device)
+
+
+def _join(pieces: np.ndarray, dim_axes: list, mesh: Mesh, dim: int,
+          coord: list, home: torch.device) -> Tensor:
+    """The pieces from ``coord`` on, concatenated along ``dim`` and the
+    dims after it."""
+    if dim == len(dim_axes):
+        return pieces[tuple(coord)].to(home)
+    axes = dim_axes[dim]
+    if not axes:
+        return _join(pieces, dim_axes, mesh, dim + 1, coord, home)
+    sizes = [mesh.devices.shape[mesh.axis_names.index(a)] for a in axes]
+    parts = []
+    for sub in np.ndindex(*sizes):
+        c = list(coord)
+        for a, i in zip(axes, sub):
+            c[mesh.axis_names.index(a)] = i
+        parts.append(_join(pieces, dim_axes, mesh, dim + 1, c, home))
+    return torch.cat(parts, dim=dim)

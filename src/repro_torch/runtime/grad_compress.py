@@ -7,9 +7,13 @@ aggregate exactly across data-parallel workers:
 
     mean_i(U^T g_i) = U^T mean_i(g_i).
 
-The port runs one process, so nothing is aggregated yet (``axis_name`` is
-refused); the arithmetic is the JAX package's single-worker reference
-semantics.
+Without ``axis_name`` the arithmetic is the JAX package's single-worker
+reference semantics.  With ``axis_name`` (an axis of a ``launch.mesh.Mesh``)
+every shard along that axis is a worker with its own error feedback, and
+only the rank-M coefficients (and, on refresh steps, one block x block
+covariance) are mean-all-reduced (``parallel.collectives.all_reduce``): that
+reduction IS the compressed all-reduce.  The mesh is one process, so the
+function takes every shard's gradients and state at once.
 
 Shapes: every leaf of the gradient tree (all float32, as the port's params
 are) is flattened and blocked into ``block``-length vectors (zero-padded);
@@ -43,6 +47,8 @@ import torch
 
 from repro_torch.core.gae import fit_pca_basis, gae_select
 from repro_torch.core.quantization import dequantize, quantize
+from repro_torch.launch.mesh import bound_axis
+from repro_torch.parallel import collectives
 from repro_torch.train import optim
 
 Tensor = torch.Tensor
@@ -89,65 +95,131 @@ def _unblocked(blocks: Tensor, shape, dtype) -> Tensor:
     return blocks.reshape(-1)[:n].reshape(shape).to(dtype)
 
 
-def _single_process(axis_name: Optional[str]) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"axis_name={axis_name!r}: the port compresses in one process; "
-            f"the data-parallel all-reduce waits for sharding (ROADMAP.md)")
+def _covariance(flat_g: list, flat_e: list, block: int, device) -> Tensor:
+    """The block covariance of (grad + error) over every leaf."""
+    cov = torch.zeros((block, block), dtype=torch.float32, device=device)
+    for g, e in zip(flat_g, flat_e):
+        hb = _blocked(g.to(torch.float32) + e, block)
+        cov = cov + hb.T @ hb
+    return cov
 
 
-def compress_update(grads: PyTree, state: GradCompressionState, *,
-                    bin_size: float = 0.0,
-                    axis_name: Optional[str] = None,
-                    refresh_every: int = 50
-                    ) -> tuple[PyTree, GradCompressionState, dict]:
+def _top_eigvecs(cov: Tensor, rank: int) -> Tensor:
+    _, vecs = torch.linalg.eigh(cov)                      # ascending
+    return torch.flip(vecs, dims=[1])[:, :rank].contiguous()
+
+
+def _project(g: Tensor, e: Tensor, basis: Tensor, bin_size: float
+             ) -> tuple[Tensor, Tensor, Tensor]:
+    """One leaf's (coefficients, local reconstruction, new error): the
+    error feedback is taken against the local reconstruction, before any
+    aggregation."""
+    h = g.to(torch.float32) + e
+    hb = _blocked(h, basis.shape[0])                      # (nb, block)
+    c = hb @ basis                                         # (nb, rank)
+    cq = dequantize(quantize(c, bin_size), bin_size) if bin_size > 0 else c
+    recon = cq @ basis.T
+    return cq, recon, _unblocked(hb - recon, h.shape, torch.float32)
+
+
+def _stats(comm_elems, raw_elems, block: int, refresh_every: int) -> dict:
+    if refresh_every:   # amortized covariance all-reduce of the refresh
+        comm_elems = np.float32(comm_elems + np.float32(block * block
+                                                        / refresh_every))
+    return {"comm_elems": float(comm_elems), "raw_elems": float(raw_elems),
+            "compression": float(raw_elems / max(comm_elems,
+                                                 np.float32(1.0)))}
+
+
+def compress_update(grads, state, *, bin_size: float = 0.0,
+                    axis_name: Optional[str] = None, mesh=None,
+                    refresh_every: int = 50):
     """Rank-M compressed gradients with error feedback and adaptive basis
     refresh (module docstring).
 
     Returns (approx gradient, new state, stats); ``state`` is not changed.
     The refresh step is read from ``state.step`` on the host: the covariance
     is only built on the steps that use it.
-    """
-    _single_process(axis_name)
-    block, rank = state.basis.shape
-    flat_g = optim.tree_leaves(grads)
-    flat_e = optim.tree_leaves(state.error)
 
-    basis = state.basis
-    if refresh_every and int(state.step) % refresh_every == 0:
-        cov = torch.zeros((block, block), dtype=torch.float32,
-                          device=basis.device)
-        for g, e in zip(flat_g, flat_e):
-            hb = _blocked(g.to(torch.float32) + e, block)
-            cov = cov + hb.T @ hb
-        _, vecs = torch.linalg.eigh(cov)                  # ascending
-        basis = torch.flip(vecs, dims=[1])[:, :rank].contiguous()
+    With ``axis_name``, ``mesh`` must have that axis (else ``NameError``,
+    as JAX's ``pmean`` outside ``shard_map``), and ``grads`` and ``state``
+    are sequences with one entry per shard along it, each on its shard's
+    device; the approx gradients and new states come back as lists.  The
+    shards' covariances (refresh steps) and coefficients are mean-reduced
+    through ``collectives.all_reduce`` (recorded in ``collectives.LOG``).
+    Without ``axis_name`` the one worker is that function's one-shard case,
+    which reduces nothing.
+    """
+    if axis_name is not None:
+        return _compress_update_shards(
+            list(grads), list(state), bound_axis(mesh, axis_name),
+            bin_size=bin_size, refresh_every=refresh_every)
+    new_g, new_state, stats = _compress_update_shards(
+        [grads], [state], [state.basis.device], bin_size=bin_size,
+        refresh_every=refresh_every)
+    return new_g[0], new_state[0], stats
+
+
+def _compress_update_shards(grads: list, states: list, devices: list, *,
+                            bin_size: float, refresh_every: int):
+    """``compress_update`` over ``len(devices)`` shards: shard *i*'s
+    gradients, error feedback and local reconstruction on ``devices[i]``;
+    the covariance (refresh steps) and each leaf's coefficients
+    mean-all-reduced.  Shards on one device share the reduced tensors, so
+    the basis and the approx gradient are computed once a device.  One
+    shard reduces nothing: its local reconstruction is the approx
+    gradient."""
+    n = len(devices)
+    if len(grads) != n or len(states) != n:
+        raise ValueError(f"{len(grads)} gradient trees and {len(states)} "
+                         f"states for {n} shards")
+    block, rank = states[0].basis.shape
+    flat_g = [optim.tree_leaves(g) for g in grads]
+    flat_e = [optim.tree_leaves(st.error) for st in states]
+
+    def once_a_device(fn, reduced: list) -> list:
+        """``fn(s, x)`` for the first shard ``s`` holding each reduced
+        tensor ``x``, shared by the shards that hold it too."""
+        done: dict = {}
+        for s, x in enumerate(reduced):
+            if id(x) not in done:
+                done[id(x)] = fn(s, x)
+        return [done[id(x)] for x in reduced]
+
+    bases = [st.basis for st in states]
+    if refresh_every and int(states[0].step) % refresh_every == 0:
+        covs = [_covariance(flat_g[s], flat_e[s], block, bases[s].device)
+                for s in range(n)]
+        covs = collectives.all_reduce(covs, "mean", devices)
+        bases = once_a_device(lambda s, c: _top_eigvecs(c, rank), covs)
 
     # the element counts in float32, as the JAX package accumulates them
     comm_elems = np.float32(0.0)
     raw_elems = np.float32(0.0)
-    new_g, new_e = [], []
-    for g, e in zip(flat_g, flat_e):
-        h = g.to(torch.float32) + e
-        hb = _blocked(h, block)                           # (nb, block)
-        c = hb @ basis                                     # (nb, rank)
-        cq = dequantize(quantize(c, bin_size), bin_size) if bin_size > 0 else c
-        recon = cq @ basis.T
-        new_e.append(_unblocked(hb - recon, h.shape, torch.float32))
-        new_g.append(_unblocked(recon, g.shape, g.dtype))
-        comm_elems = np.float32(comm_elems + np.float32(cq.numel()))
-        raw_elems = np.float32(raw_elems + np.float32(g.numel()))
-    if refresh_every:   # amortized covariance all-reduce of the refresh
-        comm_elems = np.float32(comm_elems + np.float32(block * block
-                                                        / refresh_every))
-    stats = {"comm_elems": float(comm_elems), "raw_elems": float(raw_elems),
-             "compression": float(raw_elems / max(comm_elems,
-                                                  np.float32(1.0)))}
-    return (optim.tree_unflatten(grads, new_g),
-            GradCompressionState(basis=basis,
-                                 error=optim.tree_unflatten(state.error, new_e),
-                                 step=state.step + 1),
-            stats)
+    new_g: list = [[] for _ in range(n)]
+    new_e: list = [[] for _ in range(n)]
+    for j, g0 in enumerate(flat_g[0]):
+        local = []
+        for s in range(n):
+            cq, recon, e_new = _project(flat_g[s][j], flat_e[s][j], bases[s],
+                                        bin_size)
+            new_e[s].append(e_new)
+            local.append(cq)
+            if n > 1:
+                recon = None       # made again from the reduced coefficients
+        cqs = collectives.all_reduce(local, "mean", devices)
+        approx = once_a_device(
+            lambda s, cq: _unblocked(cq @ bases[s].T if recon is None
+                                     else recon, g0.shape, g0.dtype), cqs)
+        for s in range(n):
+            new_g[s].append(approx[s])
+        comm_elems = np.float32(comm_elems + np.float32(cqs[0].numel()))
+        raw_elems = np.float32(raw_elems + np.float32(g0.numel()))
+    new_states = [GradCompressionState(
+        basis=bases[s], error=optim.tree_unflatten(states[s].error, new_e[s]),
+        step=states[s].step + 1) for s in range(n)]
+    return ([optim.tree_unflatten(grads[s], new_g[s]) for s in range(n)],
+            new_states, _stats(comm_elems, raw_elems, block, refresh_every))
 
 
 # ---------------------------------------------------------------------------

@@ -12,18 +12,36 @@ new ``TrainState`` and leaves the one it was given untouched, so a runner
 that drops a step (``ResilientRunner``'s ``skip`` policy) keeps the old
 state.  The optimizer updates copies of the params and moments in place.
 
-The port runs one process: ``axis_name`` (the data-parallel all-reduce of
-the compressed gradients) is refused until sharding is ported.
+Data parallelism runs in one process over a mesh of devices
+(``launch/mesh.py``), in the JAX package's two modes:
+
+* **GSPMD** (``mesh`` with a ``"data"`` axis, no ``axis_name``), JAX's
+  jitted step with the batch sharded by ``sharding.batch_spec``: each shard
+  takes its rows of the batch on its device, the gradients are
+  mean-all-reduced, and the compression and AdamW run as on one device on
+  each distinct device's replica of the state.  The result is the
+  one-device step on the whole batch.  The moe family, whose routing is
+  over the batch, is refused over more than one shard.
+* **``axis_name="data"``**, JAX's step under ``shard_map``: each shard keeps
+  its own ``pca_ef`` error feedback, and only the compressed coefficients
+  (and the covariance on refresh steps) are all-reduced
+  (``grad_compress.compress_update``).  The step takes and returns one
+  ``TrainState`` per shard.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional
+import weakref
+from fractions import Fraction
+from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.exec import resolve_device
+from repro_torch.launch.mesh import (Mesh, bound_axis, check_device_type,
+                                     data_devices)
 from repro_torch.models import registry
+from repro_torch.parallel import collectives
 from repro_torch.runtime import grad_compress
 from repro_torch.train import optim
 
@@ -115,7 +133,8 @@ def value_and_grad(cfg: ModelConfig, run: RunConfig,
 def make_train_step(cfg: ModelConfig, run: RunConfig,
                     optimizer: optim.Optimizer, *,
                     microbatches: int = 1,
-                    axis_name: Optional[str] = None) -> Callable:
+                    axis_name: Optional[str] = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Returns step(state, batch) -> (new state, metrics).
 
     ``batch`` holds "tokens" and "labels" ((B, S) ints, numpy or tensors);
@@ -123,19 +142,48 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
     gradients of that many slices of the batch (``value_and_grad``).  The
     metrics are 0-dim tensors, except the compression ratio of ``pca_ef``
     (a float, known from the shapes).
+
+    With ``mesh`` the step is data-parallel (module docstring): without
+    ``axis_name`` the GSPMD step, whose state lives on the mesh's first
+    device; with ``axis_name`` the ``shard_map`` step over that axis,
+    ``step(states, batch) -> (states, metrics)`` with one state and one
+    metrics dict per shard (``per_shard_states`` makes them).  JAX's step
+    reduces nothing under ``axis_name`` for ``none`` and ``gae``, so its
+    replicas drift apart: those two are refused there (the GSPMD mode
+    covers them).  ``axis_name`` without a mesh that has the axis is a
+    ``NameError``, as in JAX.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"axis_name={axis_name!r}: the port trains in one process; "
-            f"data-parallel steps wait for sharding (ROADMAP.md)")
     if run.gradient_compression not in GRADIENT_COMPRESSION:
         raise ValueError(f"gradient_compression "
                          f"{run.gradient_compression!r} not in "
                          f"{GRADIENT_COMPRESSION}")
+    if axis_name is not None:
+        devices = bound_axis(mesh, axis_name)
+        if run.gradient_compression != "pca_ef":
+            raise ValueError(
+                f"gradient_compression {run.gradient_compression!r} under "
+                f"axis_name={axis_name!r} reduces nothing across the shards, "
+                f"so their params drift apart (ROADMAP.md §3, divergence 9): "
+                f"train it in the GSPMD mode, make_train_step(mesh=...) "
+                f"without axis_name")
+        return _shard_map_step(cfg, run, optimizer, microbatches, mesh,
+                               axis_name, devices)
     compute_grads = value_and_grad(cfg, run, microbatches)
+    apply = _apply_grads(run, optimizer)
+    if mesh is not None:
+        return _gspmd_step(cfg, run, compute_grads, apply, microbatches, mesh)
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        loss, grads = compute_grads(state.params, batch)
+        return apply(state, *compute_grads(state.params, batch))
+
+    return step
+
+
+def _apply_grads(run: RunConfig, optimizer: optim.Optimizer) -> Callable:
+    """``apply(state, loss, grads) -> (new state, metrics)``: the
+    gradient compression, then ``_update``."""
+    def apply(state: TrainState, loss: Tensor, grads: PyTree
+              ) -> tuple[TrainState, dict]:
         metrics = {"loss": loss}
         gc_state = state.gc
         if run.gradient_compression == "pca_ef":
@@ -146,11 +194,238 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
             grads, gc_stats = grad_compress.gae_compress_grads(
                 grads, tau=run.grad_comp_tau or 1e-3)
             metrics["grad_keep_frac"] = gc_stats["keep_frac"]
-        params, opt, stats = optimizer.update(grads, _clone(state.opt),
-                                              _clone(state.params))
-        metrics.update(stats)
-        return TrainState(params=params, opt=opt, gc=gc_state,
-                          step=state.step + 1), metrics
+        return _update(optimizer, state, grads, gc_state, metrics)
+
+    return apply
+
+
+def _update(optimizer: optim.Optimizer, state: TrainState, grads: PyTree,
+            gc_state, metrics: dict) -> tuple[TrainState, dict]:
+    """The optimizer with ``grads`` on copies of ``state``'s params and
+    moments: the new state, whose compression state is ``gc_state``, and
+    ``metrics`` with the optimizer's stats added."""
+    params, opt, stats = optimizer.update(grads, _clone(state.opt),
+                                          _clone(state.params))
+    metrics.update(stats)
+    return TrainState(params=params, opt=opt, gc=gc_state,
+                      step=state.step + 1), metrics
+
+
+def _rows(batch: dict, lo: int, hi: int) -> dict:
+    return {k: v[lo:hi] for k, v in batch.items()}
+
+
+def _label_counts(cfg: ModelConfig, labels, n: int) -> list:
+    """The counted labels (ids in [0, vocab), the train loss's mask) of
+    each of ``n`` equal row blocks of ``labels``."""
+    lab = torch.as_tensor(labels).reshape(n, -1)
+    return ((lab >= 0) & (lab < cfg.vocab)).sum(dim=1).tolist()
+
+
+def _tree_to(tree: PyTree, device: torch.device) -> PyTree:
+    """A copy of ``tree`` on ``device`` (containers rebuilt)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_to(x, device) for x in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(x, device) for x in tree)
+    return tree.to(device, non_blocking=True) \
+        if isinstance(tree, Tensor) else tree
+
+
+def data_parallel_value_and_grad(cfg: ModelConfig, run: RunConfig,
+                                 mesh: Mesh, microbatches: int = 1
+                                 ) -> Callable:
+    """``fn(params_on, batch) -> {device: (loss, grads)}``: the loss and
+    gradient of the whole batch, computed data-parallel over ``mesh``'s
+    ``("pod", "data")`` shards, on each distinct device of them.
+    ``params_on`` maps each such device to its replica of the params (one
+    tree will do where the shards share one device).
+
+    Global microbatch *i* (rows ``i*b/m ...``, as ``value_and_grad`` cuts
+    them) is split over the shards; shard *s* weighs its part by
+    ``dp * c_is / (m * C_i)`` (``c_is`` its counted labels, ``C_i`` the
+    microbatch's), so the mean over shards is the global loss and its
+    gradient even where padding labels fall unevenly (the weight is 1 where
+    they do not).  One mean all-reduce carries the loss and every gradient
+    leaf (``collectives.LOG`` records it).
+
+    The moe family is refused over more than one shard: its routing caps
+    each expert's tokens by the batch it is given, so a shard's routing is
+    not the whole batch's, which JAX's GSPMD step routes (ROADMAP.md §3,
+    divergence 10)."""
+    devices = data_devices(mesh)
+    dp = len(devices)
+    if dp > 1 and cfg.family == "moe":
+        raise ValueError(
+            f"{cfg.arch}: the moe family routes each data shard's tokens "
+            f"apart, with expert capacities of the shard's batch, where "
+            f"JAX's GSPMD step routes the whole batch (ROADMAP.md §3, "
+            f"divergence 10): train it over one data shard")
+    one = value_and_grad(cfg, run)
+
+    def shard_grads(params: PyTree, pieces: list) -> tuple:
+        """``(w * loss, *w * grads)`` summed over the (batch, w) pieces;
+        one piece of weight 1 is ``one``'s result as it is."""
+        loss, acc = None, None
+        for batch, w in pieces:
+            l, g = one(params, batch)
+            leaves = optim.tree_leaves(g)
+            del g
+            if w != 1.0:
+                l = l * w
+                leaves = [x.to(torch.float32) * w for x in leaves]
+            if acc is None:
+                loss, acc = l, leaves
+            else:
+                loss = loss + l
+                acc = [a + x.to(torch.float32) for a, x in zip(acc, leaves)]
+        return (loss, *acc)
+
+    def fn(params_on, batch: dict) -> dict:
+        if not isinstance(params_on, dict) or not all(
+                isinstance(k, torch.device) for k in params_on):
+            params_on = {dev: params_on for dev in devices}
+        b = len(batch["tokens"])
+        if b % (dp * microbatches):
+            raise ValueError(f"batch {b} does not split into {microbatches} "
+                             f"microbatches over {dp} data shards")
+        mb, part = b // microbatches, b // (microbatches * dp)
+        counts = _label_counts(cfg, batch["labels"], microbatches * dp)
+        shards = []
+        for s, dev in enumerate(devices):
+            pieces = []
+            for i in range(microbatches):
+                c = counts[i * dp:(i + 1) * dp]
+                w = float(Fraction(dp * c[s], microbatches * sum(c))) \
+                    if sum(c) else 0.0
+                lo = i * mb + s * part
+                pieces.append((_rows(batch, lo, lo + part), w))
+            shards.append(shard_grads(params_on[dev], pieces))
+        reduced = dict(zip(devices, collectives.all_reduce(shards, "mean",
+                                                           devices)))
+        del shards
+        return {dev: (loss, optim.tree_unflatten(params_on[dev], leaves))
+                for dev, (loss, *leaves) in reduced.items()}
+
+    return fn
+
+
+def _gspmd_step(cfg: ModelConfig, run: RunConfig, compute_grads: Callable,
+                apply: Callable, microbatches: int, mesh: Mesh) -> Callable:
+    """JAX's jitted step over ``mesh`` with the batch sharded over
+    ``("pod", "data")``: the gradients of ``data_parallel_value_and_grad``,
+    then ``apply`` on each distinct device's replica of the state.
+    Replicas on devices other than the first are kept from one step to the
+    next (and made again when the step is handed another state).  One data
+    shard is the one-device step."""
+    devices = data_devices(mesh)
+    home = devices[0]
+    grads_on = data_parallel_value_and_grad(cfg, run, mesh, microbatches)
+    kept: dict = {}
+
+    def replicas(state: TrainState) -> dict:
+        leaf = optim.tree_leaves(state.params)[0]
+        if kept.get("of") is not None and kept["of"]() is leaf:
+            return {home: state, **kept["replicas"]}
+        out = {home: state}
+        for dev in devices:
+            if dev not in out:
+                out[dev] = _tree_to(state, dev)
+        return out
+
+    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        check_device_type(mesh, optim.tree_leaves(state.params)[0].device)
+        if len(devices) == 1:
+            return apply(state, *compute_grads(state.params, batch))
+        _check_home(state, home)
+        reps = replicas(state)
+        reduced = grads_on({dev: rep.params for dev, rep in reps.items()},
+                           batch)
+        new, metrics = {}, None
+        for dev, rep in reps.items():
+            new[dev], m = apply(rep, *reduced.pop(dev))
+            metrics = m if metrics is None else metrics
+        first = new.pop(home)
+        kept.clear()
+        if new:
+            kept.update(of=weakref.ref(optim.tree_leaves(first.params)[0]),
+                        replicas=new)
+        return first, metrics
+
+    return step
+
+
+def _check_home(state: TrainState, home: torch.device) -> None:
+    at = optim.tree_leaves(state.params)[0].device
+    if at != home:
+        raise ValueError(f"the state lies on {at}, not on the mesh's first "
+                         f"data shard's device {home}")
+
+
+def per_shard_states(state: TrainState, mesh: Mesh,
+                     axis_name: str = "data") -> list:
+    """One ``TrainState`` per shard along ``axis_name`` for the
+    ``shard_map`` step, from a replicated ``state`` on the first shard's
+    device: the params, moments and step once per distinct device (shards
+    on one device share them), the compression state copied for every
+    shard (each its own error feedback)."""
+    devices = bound_axis(mesh, axis_name)
+    _check_home(state, devices[0])
+    on: dict = {}
+    out = []
+    for dev in devices:
+        if dev not in on:
+            on[dev] = state if not on else _tree_to(state, dev)
+        out.append(on[dev]._replace(gc=_clone(on[dev].gc)))
+    return out
+
+
+def _shard_map_step(cfg: ModelConfig, run: RunConfig,
+                    optimizer: optim.Optimizer, microbatches: int, mesh: Mesh,
+                    axis_name: str, devices: list) -> Callable:
+    """JAX's ``shard_map(make_train_step(..., axis_name))`` for ``pca_ef``:
+    shard *s* takes rows ``s*b/n ...`` of the batch (its own microbatches
+    within them), the compressed all-reduce runs in ``compress_update``,
+    and each shard's optimizer update runs once for the shards that share
+    its params and moments (the approx gradient is the same on every
+    shard)."""
+    compute_grads = value_and_grad(cfg, run, microbatches)
+    n = len(devices)
+
+    def step(states: Sequence[TrainState], batch: dict
+             ) -> tuple[list, list]:
+        if len(states) != n:
+            raise ValueError(f"{len(states)} states for the {n} shards of "
+                             f"axis {axis_name!r}")
+        b = len(batch["tokens"])
+        if b % n:
+            raise ValueError(f"batch {b} does not split over {n} shards")
+        part = b // n
+        losses, grads = [], []
+        for s, st in enumerate(states):
+            check_device_type(mesh, optim.tree_leaves(st.params)[0].device)
+            out = compute_grads(st.params,
+                                _rows(batch, s * part, (s + 1) * part))
+            losses.append(out[0])
+            grads.append(out[1])
+            del out            # the gradients live in ``grads`` alone
+        ghat, gcs, gc_stats = grad_compress.compress_update(
+            grads, [st.gc for st in states], axis_name=axis_name, mesh=mesh)
+        del grads
+        done: dict = {}
+        new_states, metrics = [], []
+        for s, st in enumerate(states):
+            key = (id(st.params), id(st.opt))
+            if key not in done:
+                done[key] = _update(optimizer, st, ghat[s], gcs[s], {})
+            new, stats = done[key]
+            new_states.append(new._replace(gc=gcs[s]))
+            metrics.append({"loss": losses[s],
+                            "grad_compression": gc_stats["compression"],
+                            **stats})
+        return new_states, metrics
 
     return step
 

@@ -17,7 +17,8 @@ tree.  The step count, the learning rate and the bias corrections are
 0-dim tensors on the params' device, so an update never waits on the host;
 the per-leaf arithmetic runs as one ``torch._foreach_*`` launch per
 operation over a group of leaves (all of a compressor's leaves form one
-group; an LM's are split so that the temporaries stay small).
+group; an LM's are split, its largest leaves cut into flat views, so that
+the temporaries stay small).
 """
 from __future__ import annotations
 
@@ -47,16 +48,17 @@ def tree_leaves(tree: PyTree) -> list[Tensor]:
 def tree_unflatten(tree: PyTree, leaves) -> PyTree:
     """``tree`` with its tensor leaves replaced, in ``tree_leaves`` order, by
     ``leaves``; static leaves are kept."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {key: build(node[key]) for key in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(item) for item in node)
-        return next(it) if isinstance(node, Tensor) else node
 
-    return build(tree)
+def _build(node, it) -> PyTree:
+    # a module-level recursion: a nested one would hold itself, and with it
+    # ``leaves``, in a reference cycle until the cyclic collector ran
+    if isinstance(node, dict):
+        return {key: _build(node[key], it) for key in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(item, it) for item in node)
+    return next(it) if isinstance(node, Tensor) else node
 
 
 def tree_map(fn: Callable[[Tensor], Tensor], tree: PyTree) -> PyTree:
@@ -140,9 +142,27 @@ def _device(params: PyTree) -> Optional[torch.device]:
 
 
 # the leaves of one foreach pass hold at most this many bytes (a larger leaf
-# goes alone): each of Adam's ~8 temporaries is that large, not the model's
-# size, so an LM's update fits beside its params, moments and grads
+# is cut into flat views of at most that many fp32 elements' bytes): each of
+# Adam's ~8 temporaries is that large, not the model's size, so an LM's
+# update fits beside its params, moments and grads
 GROUP_BYTES = 1 << 28
+
+
+def _cut(leaves: list[Tensor], read_only: bool = False) -> list[Tensor]:
+    """``leaves`` with each leaf of more than ``GROUP_BYTES // 4`` elements
+    cut into flat views of at most that many (the same cut for a param, its
+    moments and its gradient, whatever their dtypes); writing to a view
+    writes to its leaf, and the update is elementwise.  A ``read_only``
+    leaf that is not contiguous is copied flat."""
+    step = GROUP_BYTES // 4
+    out = []
+    for x in leaves:
+        if x.numel() <= step:
+            out.append(x)
+        else:
+            out.extend((x.reshape(-1) if read_only else x.view(-1))
+                       .split(step))
+    return out
 
 
 def _groups(leaves: list[Tensor]):
@@ -174,8 +194,12 @@ def adamw(lr: float | Callable[[Any], Tensor] = 1e-3,
     @torch.no_grad()
     def update(grads: PyTree, state: AdamState, params: PyTree):
         stats = {}
+        scale = None
         if max_grad_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+            # clip_by_global_norm's scale, applied group by group below, so
+            # no clipped copy of the whole gradient tree is made
+            gnorm = global_norm(grads)
+            scale = torch.clamp(max_grad_norm / (gnorm + 1e-12), max=1.0)
             stats["grad_norm"] = gnorm
         step = state.step + 1
         lr_t = sched(step)
@@ -184,9 +208,12 @@ def adamw(lr: float | Callable[[Any], Tensor] = 1e-3,
         bc2 = 1.0 - b2 ** step.to(torch.float32)
 
         f32 = torch.float32
-        leaves = [tree_leaves(t) for t in (params, state.mu, state.nu, grads)]
+        leaves = [_cut(tree_leaves(t)) for t in (params, state.mu, state.nu)]
+        leaves.append(_cut(tree_leaves(grads), read_only=True))
         for lo, hi in _groups(leaves[0]):
             p, mu, nu, g = (x[lo:hi] for x in leaves)
+            if scale is not None:
+                g = [x * scale.to(x.dtype) for x in g]
             g = [x.to(f32) for x in g]
             m = torch._foreach_add(
                 torch._foreach_mul([x.to(f32) for x in mu], b1),

@@ -53,7 +53,10 @@ PORT_MODULES = ("repro_torch.core.pipeline", "repro_torch.runtime.archive_io",
                 "repro_torch.runtime.checkpoint",
                 "repro_torch.runtime.failures", "repro_torch.launch.train",
                 "repro_torch.parallel.mesh_exec",
-                "repro_torch.parallel.mesh_check")
+                "repro_torch.parallel.mesh_check",
+                "repro_torch.launch.mesh", "repro_torch.parallel.sharding",
+                "repro_torch.parallel.collectives",
+                "repro_torch.parallel.pipeline")
 
 
 def test_importing_the_port_loads_no_jax():

@@ -2,7 +2,7 @@
 package's (``repro.parallel``), on the CPU.
 
 The JAX mesh is one process over a mesh of devices; its CPU check forces
-virtual devices.  The port's counterpart is a ``CompressMesh`` that names
+virtual devices.  The port's counterpart is a 1-D ``Mesh`` that names
 one device several times, so four shards run on the host's one CPU here.
 
 * span planning (``plan_shard_groups``, ``group_slice``) and the options'
@@ -142,9 +142,11 @@ def test_make_compress_mesh_refuses_impossible():
         t_mesh.make_compress_mesh(devices=[])
     with pytest.raises(ConfigError, match="names 2 device"):
         t_mesh.make_compress_mesh(3, devices=["cpu", "cpu"])
-    assert t_mesh.make_compress_mesh(1).devices == (torch.device("cpu"),)
-    assert t_mesh.make_compress_mesh().devices == (torch.device("cpu"),)
-    assert CPU4.devices == (torch.device("cpu"),) * SHARDS
+    assert tuple(t_mesh.make_compress_mesh(1).devices) == (
+        torch.device("cpu"),)
+    assert tuple(t_mesh.make_compress_mesh().devices) == (
+        torch.device("cpu"),)
+    assert tuple(CPU4.devices) == (torch.device("cpu"),) * SHARDS
     assert CPU4.axis_names == (MESH_AXIS,) and CPU4.shape == {MESH_AXIS: 4}
 
 

@@ -1,6 +1,6 @@
 """The sharded compress path on the card, without JAX.
 
-A 4-shard ``CompressMesh`` over ``cuda:0`` repeated (the port's
+A 4-shard compress mesh over ``cuda:0`` repeated (the port's
 counterpart of the JAX package's virtual devices) must give the unsharded
 archive bytes in batch and in stream, launch the same kernels as often, run
 every shard's stage functions on the card, and decode within float32

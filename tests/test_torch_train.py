@@ -297,9 +297,21 @@ def test_eval_step_matches_train_loss(pair):
 
 
 def test_axis_name_and_unknown_modes_are_refused(pair):
+    """``axis_name`` needs a mesh with that axis (``NameError``, as JAX's
+    ``pmean`` outside ``shard_map``); under it only ``pca_ef`` reduces
+    anything, so ``none`` and ``gae`` are refused (ROADMAP.md §3,
+    divergence 9); an unknown mode is refused."""
+    from repro_torch.launch.mesh import make_mesh
+
     t_o = _optimizers()[1]
-    with pytest.raises(NotImplementedError, match="one process"):
+    with pytest.raises(NameError, match="unbound axis name: data"):
         loop.make_train_step(pair.cfg, RunConfig(), t_o, axis_name="data")
+    mesh = make_mesh((2,), ("data",), ["cpu", "cpu"])
+    for mode in ("none", "gae"):
+        with pytest.raises(ValueError, match="GSPMD mode"):
+            loop.make_train_step(pair.cfg,
+                                 RunConfig(gradient_compression=mode), t_o,
+                                 mesh=mesh, axis_name="data")
     with pytest.raises(ValueError, match="gradient_compression"):
         loop.make_train_step(pair.cfg,
                              RunConfig(gradient_compression="topk"), t_o)

@@ -161,10 +161,26 @@ def test_fixed_basis_diverges_and_refresh_bounds_the_error():
 
 
 def test_axis_name_is_refused():
-    g = {"w": torch.zeros(4, 64)}
-    with pytest.raises(NotImplementedError, match="one process"):
-        t_gc.compress_update(g, t_gc.init_state(g, block=64, rank=4),
-                             axis_name="data")
+    """``axis_name`` without a mesh that has the axis is unbound, as JAX's
+    ``pmean`` outside ``shard_map``; with one, each shard's gradient and
+    state go in, and a shard's share of the mean comes back on each."""
+    from repro_torch.launch.mesh import make_mesh
+
+    g = {"w": torch.from_numpy(_g(5, (4, 64)))}
+    st = t_gc.init_state(g, block=64, rank=4)
+    with pytest.raises(NameError, match="unbound axis name: data"):
+        t_gc.compress_update(g, st, axis_name="data")
+    mesh = make_mesh((2,), ("data",), ["cpu", "cpu"])
+    with pytest.raises(NameError, match="unbound axis name: pod"):
+        t_gc.compress_update([g, g], [st, st], axis_name="pod", mesh=mesh)
+    ghat, states, _ = t_gc.compress_update([g, g], [st, st],
+                                           axis_name="data", mesh=mesh)
+    want, want_st, _ = t_gc.compress_update(g, st)
+    for s in range(2):
+        np.testing.assert_allclose(ghat[s]["w"].numpy(), want["w"].numpy(),
+                                   atol=1e-6)
+        np.testing.assert_allclose(states[s].error["w"].numpy(),
+                                   want_st.error["w"].numpy(), atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
