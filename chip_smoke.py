@@ -18,7 +18,8 @@ Phases, each reported on its own lines:
    CUDA kernels are also each held to their plain phase and timed by name;
    flash_attention and block_attention run in fp32 and bf16; the card's
    launch floor (a one-element ``torch.add_``) is printed; quantize also
-   takes bf16 and is held bit for bit to the fp32 formula; and the gates of
+   takes bf16, at phase 9b (c)'s K or V cache (3584, 256) and at
+   (64, 128), and is held bit for bit to the fp32 formula; and the gates of
    the redesigned kernels hold: block_attention at the S3D stripe
    (64, 10, 128) at most 0.0042 ms (or 1.5x the launch floor, where that is
    above it), at (1600, 10, 128) at most 2.0x its bytes bound, and at both
@@ -152,6 +153,27 @@ Phases, each reported on its own lines:
    ``ResilientRunner`` with ``chaos_wrap`` on the card, which restores
    twice and ends where the uninterrupted run ends (bit for bit is
    printed; held within 1 % of the summed learning rate);
+9b. the dry-run's run configs (the JAX package's ``launch/dryrun.py``
+   ``make_run_config`` without tp and dp), seeded weights: (a) qwen2-1.5b
+   at full width and depth trained as phase 9 trains it with the train
+   config, bf16 compute and ``remat`` (gates: finite losses, the last
+   below step 0's, flash_attention launched 2 x 28 a step, the forward and
+   the recompute), and one ``loop.value_and_grad`` at its first batch
+   without and with remat (gates: the losses equal bit for bit, the
+   gradients within 1e-5 of each leaf's largest, the remat peak below the
+   other); (b) two steps of (a) with ``cast_params_early`` (finite losses,
+   flash 2 x 28; wall and peak printed beside (a)'s); (c) the serve config:
+   the bf16 prefill of B 1 x S 4096 on ``cast_params(params, bf16)`` with
+   bf16 params against the bf16 prefill on the float32 params (gate: the
+   logits equal bit for bit; device busy and the cast/copy kernels' ms of
+   both printed), and one ``kv_tau`` request on the bf16 params (gates:
+   the quantize kernel launched on the bf16 cache alone, and on the
+   engine's prefilled bf16 cache bit for bit its plain version and the
+   float32 formula); (d) granite-moe-3b-a800m at
+   full width and depth, 8 AdamW steps of B 1 x S 4096 with bf16 params
+   and compute and remat, its peak reckoned and printed before the state
+   is made (S 2048 where it passes 76 GiB); the train gates with flash
+   2 x 32 a step, the routing of step 0's batch printed;
 10. the LMs data- and pipeline-parallel over a mesh of the card repeated
    (``launch/mesh.py``, ``parallel/``), qwen2-1.5b at full width and depth
    with seeded weights: (a) ``pipeline_apply`` of the 28 layers as 4 GPipe
@@ -396,28 +418,30 @@ def check_kernels(torch, dev) -> dict:
         report("quantize", shape, err, t, t_plain, None, b_ms, b_by)
 
     # quantize on bf16 input: read as fp32, deq written in bf16, err2 in fp32,
-    # bit for bit the fp32 formula (and the plain version), at the HBAE
-    # latents' shape; no compressor path hands it bf16 (launches 0)
-    x = (3 * torch.randn((64, 128), generator=gen, device=dev)).to(torch.bfloat16)
-    got = qz.quantize_fused(x, 0.005)
-    x32, b32 = x.float(), torch.tensor(0.005, device=dev)
-    q32 = torch.round(x32 / b32)
-    deq32 = q32 * b32
-    want = (q32.to(torch.int32), deq32.to(torch.bfloat16),
-            torch.square(x32 - deq32))
-    for g, w, p in zip(got, want, qz.quantize_fused_plain(x, 0.005)):
-        if not (g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, p)):
-            raise CheckFailed("quantize bf16 (64, 128): kernel output is not "
-                              "bit-identical to the fp32 formula and the plain "
-                              "version")
-    t = time_ms(torch, lambda: qz.quantize_fused(x, 0.005))
-    t_plain = time_ms(torch, lambda: qz.quantize_fused_plain(x, 0.005))
-    n = x.numel()
-    b_ms, b_by = row("quantize", "src/repro_torch/csrc/quantize.cu",
-                     "src/repro/kernels/quantize/kernel.py:25", 0.0, t[0],
-                     t_plain[0], None, 12 * n, 5 * n, dtype="bfloat16")
-    report("quantize", (64, 128, "bfloat16"), 0.0, t, t_plain, None, b_ms,
-           b_by)
+    # bit for bit the fp32 formula (and the plain version); first at the
+    # shape of phase 9b (c)'s bf16 serve, its K or V cache (28 layers x 1 x
+    # 128 tokens, KV*hd = 256) at bin 2 KV_TAU / sqrt(256), whose numbers
+    # the row takes beside that run's launches; then the HBAE latents'
+    # shape, which no compressor path hands it in bf16
+    for shape, b in (((3584, 256), 2 * KV_TAU / 16), ((64, 128), 0.005)):
+        x = (3 * torch.randn(shape, generator=gen, device=dev)).to(
+            torch.bfloat16)
+        got = qz.quantize_fused(x, b)
+        want = _quantize_bf16_formula(torch, x, b)
+        for g, w, p in zip(got, want, qz.quantize_fused_plain(x, b)):
+            if not (g.dtype == w.dtype and torch.equal(g, w)
+                    and torch.equal(g, p)):
+                raise CheckFailed(f"quantize bf16 {shape}: kernel output is "
+                                  f"not bit-identical to the fp32 formula "
+                                  f"and the plain version")
+        t = time_ms(torch, lambda: qz.quantize_fused(x, b))
+        t_plain = time_ms(torch, lambda: qz.quantize_fused_plain(x, b))
+        n = x.numel()
+        b_ms, b_by = row("quantize", "src/repro_torch/csrc/quantize.cu",
+                         "src/repro/kernels/quantize/kernel.py:25", 0.0, t[0],
+                         t_plain[0], None, 12 * n, 5 * n, dtype="bfloat16")
+        report("quantize", shape + ("bfloat16",), 0.0, t, t_plain, None,
+               b_ms, b_by)
 
     # the card's launch floor: the device time of the least kernel there is,
     # printed beside block_attention's small-shape time, which is below it
@@ -1797,7 +1821,8 @@ def lm_prefill(torch, api, params, cfg, run, tokens, kernel, counters,
     return dict(wall=wall, tokens_s=tokens.numel() / wall, busy=busy,
                 shape=tuple(tokens.shape),
                 mine=sum(parts.values()), parts=parts, launches=launches,
-                tail=tail, top=top_device_ms(torch, prof))
+                tail=tail, top=top_device_ms(torch, prof),
+                copy=sum(device_ms_by_name(torch, prof, "copy").values()))
 
 
 def print_prefill(arch, kernel, dtype, r) -> None:
@@ -2287,10 +2312,10 @@ def _values(t) -> str:
 
 
 def _print_routing(torch, api, params, cfg, run, tokens) -> None:
-    """One more fp32 ``forward`` at the published capacity factor, recorded:
-    ``moe_router_stats`` on each layer's MoE input (expert load and its
-    coefficient of variation) and the share of (token, slot) pairs dropped
-    at capacity C."""
+    """One more ``forward`` of ``run`` at the published capacity factor,
+    recorded: ``moe_router_stats`` on each layer's MoE input (expert load
+    and its coefficient of variation) and the share of (token, slot) pairs
+    dropped at capacity C."""
     from repro_torch.models import moe
 
     with torch.no_grad(), MoeRecorder(inputs=True) as rec:
@@ -2299,8 +2324,9 @@ def _print_routing(torch, api, params, cfg, run, tokens) -> None:
                       cfg.capacity_factor)
     stats = [moe.moe_router_stats(p, x, cfg.top_k) for p, x in rec.inputs]
     cvs = [float(s["load_cv"]) for s in stats]
-    print(f"lm {cfg.arch} routing at S {tokens.shape[1]} (fp32, capacity "
-          f"factor {cfg.capacity_factor}, C = {c}): dropped share "
+    print(f"lm {cfg.arch} routing at S {tokens.shape[1]} "
+          f"({run.compute_dtype}, capacity factor {cfg.capacity_factor}, "
+          f"C = {c}): dropped share "
           f"{rec.dropped_share():.6f} of {sum(k.numel() for k in rec.keeps)} "
           f"(token, slot) pairs; moe_router_stats layer 0 expert_load "
           f"{stats[0]['expert_load'].tolist()} load_cv {cvs[0]:.4f}; load_cv "
@@ -2398,24 +2424,47 @@ def _kv_cache(state):
             else state.caches)
 
 
+def _quantize_bf16_formula(torch, x, b):
+    """(q, deq, err2) of a bf16 ``x`` at bin ``b`` by the float32 formula:
+    x read into float32, deq rounded to bf16 once, err2 in float32."""
+    x32, b32 = x.float(), torch.tensor(b, device=x.device)
+    q32 = torch.round(x32 / b32)
+    deq32 = q32 * b32
+    return (q32.to(torch.int32), deq32.to(torch.bfloat16),
+            torch.square(x32 - deq32))
+
+
 def _check_kv_quantize(torch, arch, caches) -> None:
     """The kv_tau path's quantize kernel on the serving path's own input: a
-    prefilled K and V cache, against the plain version, bit for bit."""
+    prefilled K and V cache, against the plain version, bit for bit; a bf16
+    cache goes in as it is, and is held to the float32 formula too."""
     from repro_torch.kernels.quantize import ops as qz
     from repro_torch.runtime.kvcache import quantize_kv_bounded
 
     for name, kv in (("k", caches.k), ("v", caches.v)):
         d = kv.shape[-2] * kv.shape[-1]
-        flat = kv.reshape(-1, d).float().contiguous()
-        got = quantize_kv_bounded(kv, KV_TAU)
-        want = qz.quantize_fused_plain(flat, 2 * KV_TAU / d ** 0.5)[1]
-        if not torch.equal(got.reshape(flat.shape), want):
+        b = 2 * KV_TAU / d ** 0.5
+        flat = kv.reshape(-1, d)
+        if flat.dtype != torch.bfloat16:
+            flat = flat.float()
+        flat = flat.contiguous()
+        got = quantize_kv_bounded(kv, KV_TAU).reshape(flat.shape)
+        want = qz.quantize_fused_plain(flat, b)[1]
+        if flat.dtype == torch.bfloat16:
+            same = torch.equal(got, _quantize_bf16_formula(torch, flat, b)[1])
+        else:
+            same = True
+        if not (same and got.dtype == want.dtype and torch.equal(got, want)):
             raise CheckFailed(f"{arch}: quantize_kv_bounded on the prefilled "
-                              f"{name} cache {tuple(kv.shape)} is not "
-                              f"bit-identical to the plain version")
+                              f"{name} cache {tuple(kv.shape)} {kv.dtype} is "
+                              f"not bit-identical to the plain version"
+                              + (" and the float32 formula"
+                                 if flat.dtype == torch.bfloat16 else ""))
         print(f"lm {arch} kv_tau: quantize kernel on the prefilled {name} "
-              f"cache {tuple(kv.shape)} bit-identical to the plain version",
-              flush=True)
+              f"cache {tuple(kv.shape)} ({tuple(flat.shape)} {kv.dtype}) "
+              f"bit-identical to the plain version"
+              + (" and the float32 formula" if flat.dtype == torch.bfloat16
+                 else ""), flush=True)
 
 
 def _numel(tree):
@@ -2567,11 +2616,11 @@ def _grads_per_leaf_close(what, got, want, frac=1e-5, zero=None) -> float:
                                   f"{largest:.3e}")
             continue
         scale = w.abs().max().item()
-        err = (g.cpu() - w).abs().max().item()
+        err = (g.to(w.device) - w).abs().max().item()
         worst = max(worst, err / scale if scale else err)
         if err > frac * scale:
-            raise CheckFailed(f"{what}: a gradient on the card differs from "
-                              f"the CPU's by {err:.3e}, more than {frac} x "
+            raise CheckFailed(f"{what}: a gradient differs from the one it "
+                              f"is held to by {err:.3e}, more than {frac} x "
                               f"its leaf's largest {scale:.3e}")
     return worst
 
@@ -2677,13 +2726,18 @@ def train_whisper(torch, dev, counters) -> None:
     train_full(torch, dev, counters, cfg, RunConfig(), batch_at, (b, s))
 
 
-def train_full(torch, dev, counters, cfg, run, batch_at, shape) -> None:
-    """``cfg`` at full width and depth with seeded params, TRAIN_STEPS
-    AdamW steps (warmup-cosine to TRAIN_LR, clipping at 1.0, decay 0.01) of
-    ``batch_at(step)``, ``shape`` (B, S) decoder tokens each; the last
-    TRAIN_PROFILED steps under the profiler.  Gates: finite losses, the
-    last below step 0's, flash_attention launched once per attention layer
-    (``kernel_layers``) each step."""
+def train_full(torch, dev, counters, cfg, run, batch_at, shape,
+               steps: int = TRAIN_STEPS, require_drop: bool = True,
+               at_start=None) -> dict:
+    """``cfg`` at full width and depth with seeded params, ``steps`` AdamW
+    steps (warmup-cosine to TRAIN_LR over TRAIN_STEPS, clipping at 1.0,
+    decay 0.01) of ``batch_at(step)``, ``shape`` (B, S) decoder tokens
+    each; the last TRAIN_PROFILED steps (at most all but one) under the
+    profiler; ``at_start(state)`` runs on the state before the first step.
+    Gates: finite losses, with ``require_drop`` the last below step 0's,
+    flash_attention launched once per attention layer (``kernel_layers``)
+    each step, twice under ``run.remat`` (the forward, then the recompute
+    before the backward).  Returns the losses, step walls and peak GiB."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.train import loop, optim
@@ -2698,6 +2752,8 @@ def train_full(torch, dev, counters, cfg, run, batch_at, shape) -> None:
                                   run, opt, dev)
     torch.cuda.synchronize()
     made = time.perf_counter() - t0
+    if at_start is not None:
+        at_start(state)
     step_fn = loop.make_train_step(cfg, run, opt)
     losses, walls, launches = [], [], []
 
@@ -2713,38 +2769,47 @@ def train_full(torch, dev, counters, cfg, run, batch_at, shape) -> None:
         launches.append({name: c.value for name, c in counters.items()})
         return state
 
-    profiled_from = TRAIN_STEPS - TRAIN_PROFILED
+    profiled = min(TRAIN_PROFILED, steps - 1)
+    profiled_from = steps - profiled
     for i in range(profiled_from):
         state = one_step(state, i)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(profiled_from, TRAIN_STEPS):
+        for i in range(profiled_from, steps):
             state = one_step(state, i)
     busy_ms = device_union_ms(torch, prof)
     # where the profiled steps' device time goes: flash_attention's forward,
-    # the cuBLAS matmuls (kernel names holding "gemm"), and the rest
+    # the cuBLAS matmuls (kernel names holding "gemm", or "nvjet" for
+    # cuBLASLt's bf16 kernels), and the rest
     flash = sum(device_ms_by_name(torch, prof, "flash").values())
-    gemm = sum(device_ms_by_name(torch, prof, "gemm").values())
+    gemm = sum(sum(device_ms_by_name(torch, prof, m).values())
+               for m in ("gemm", "nvjet"))
+    top = top_device_ms(torch, prof)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = walls[1:]
     prof_wall = sum(walls[profiled_from:]) * 1e3
     tokens = shape[0] * shape[1]
-    layers = kernel_layers(cfg)
-    print(f"train {cfg.arch}: {layers} attention layers, B {shape[0]} x S "
-          f"{shape[1]}, ce_chunk {run.ce_chunk}, AdamW; state made in "
-          f"{made:.1f} s; losses {' '.join(f'{x:.4f}' for x in losses)}; "
-          f"step walls s {' '.join(f'{x:.4f}' for x in walls)}; steps "
-          f"1-{TRAIN_STEPS - 1}: {len(steady) / sum(steady):.4f} steps/s, "
+    layers = kernel_layers(cfg) * (2 if run.remat else 1)
+    print(f"train {cfg.arch}: {kernel_layers(cfg)} attention layers, B "
+          f"{shape[0]} x S {shape[1]}, params {run.param_dtype}, compute "
+          f"{run.compute_dtype}, remat {run.remat}, cast_params_early "
+          f"{run.cast_params_early}, ce_chunk {run.ce_chunk}, AdamW; state "
+          f"made in {made:.1f} s; losses {' '.join(f'{x:.4f}' for x in losses)}"
+          f"; step walls s {' '.join(f'{x:.4f}' for x in walls)}; steps "
+          f"1-{steps - 1}: {len(steady) / sum(steady):.4f} steps/s, "
           f"{len(steady) * tokens / sum(steady):.1f} tokens/s; last "
-          f"{TRAIN_PROFILED} steps profiled: device busy {busy_ms:.1f} ms of "
+          f"{profiled} steps profiled: device busy {busy_ms:.1f} ms of "
           f"{prof_wall:.1f} ms wall, idle share {1 - busy_ms / prof_wall:.4f}"
           f" (flash_attention {flash:.1f} ms, cuBLAS gemm {gemm:.1f} ms, "
           f"the rest {busy_ms - flash - gemm:.1f} ms); peak memory "
           f"{peak:.2f} GiB; launches a step "
           f"{json.dumps(launches[-1])}", flush=True)
+    print(f"train {cfg.arch}: most device time: " + "; ".join(
+        f"{name} {ms:.3f} ms ({share:.4f})" for name, ms, share in top),
+        flush=True)
     if not all(math.isfinite(x) for x in losses):
         raise CheckFailed(f"{cfg.arch} training: a loss is not finite: "
                           f"{losses}")
-    if not losses[-1] < losses[0]:
+    if require_drop and not losses[-1] < losses[0]:
         raise CheckFailed(f"{cfg.arch} training: the last loss "
                           f"{losses[-1]} is not below step 0's {losses[0]}")
     bad = [i for i, n in enumerate(launches) if n["flash_attention"] != layers]
@@ -2754,6 +2819,7 @@ def train_full(torch, dev, counters, cfg, run, batch_at, shape) -> None:
                           f"times at steps {bad}, not {layers}")
     del state
     torch.cuda.empty_cache()
+    return {"losses": losses, "walls": walls, "peak": peak}
 
 
 def _block_errs(np, x, y, block=GAE_BLOCK):
@@ -2968,6 +3034,275 @@ def train_chaos(torch, dev) -> None:
     if not diff <= bound:
         raise CheckFailed(f"train chaos: the restored run ends {diff} from "
                           f"the uninterrupted one, more than {bound}")
+
+
+# ---------------------------------------------------------------------------
+# phase 9b: the dry-run's run configs
+# ---------------------------------------------------------------------------
+
+# (d) falls to S 2048 where granite-moe-3b-a800m's reckoned peak would pass
+# this
+TRAIN_PEAK_GIB_MAX = 76.0
+# Adam's temporaries at the update: its foreach passes run over groups of
+# leaves of at most 256 MiB, a few such groups' float32 copies at once
+ADAM_TEMP_GIB = 2.0
+
+
+def run_dryrun_configs(torch, dev, counters) -> dict:
+    """Phase 9b, the run configs of the JAX package's ``launch/dryrun.py``
+    (``make_run_config``) without tp and dp: (a) qwen2-1.5b trained with
+    its train config, bf16 compute and remat, and remat held to no remat on
+    one batch; (b) the same two steps with ``cast_params_early``; (c) its
+    serve config, bf16 params and compute: the prefill against the bf16
+    prefill on fp32 params, and a ``kv_tau`` request; (d)
+    granite-moe-3b-a800m trained at full width with bf16 params and remat.
+    Returns the launches of (c)'s request of the quantize kernel on bf16."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    corpus = SyntheticCorpus(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1, seed=0))
+    train = RunConfig(compute_dtype="bfloat16", remat=True,
+                      ce_chunk=TRAIN_CE_CHUNK)
+    a = train_full(torch, dev, counters, cfg, train, corpus.batch_at,
+                   (1, TRAIN_SEQ))
+    dryrun_remat_grads(torch, dev, cfg, train, corpus.batch_at(0))
+    b = train_full(torch, dev, counters, cfg,
+                   dataclasses.replace(train, cast_params_early=True),
+                   corpus.batch_at, (1, TRAIN_SEQ), steps=2,
+                   require_drop=False)
+    print(f"dryrun (b) cast_params_early against (a): step walls s "
+          f"{' '.join(f'{x:.4f}' for x in b['walls'])} against "
+          f"{' '.join(f'{x:.4f}' for x in a['walls'][:2])}; peak memory "
+          f"{b['peak']:.2f} against {a['peak']:.2f} GiB", flush=True)
+    launches = dryrun_serve(torch, dev, counters, cfg)
+    dryrun_granite(torch, dev, counters)
+    print(f"dryrun: the phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {("quantize", "bfloat16"): launches}
+
+
+def dryrun_remat_grads(torch, dev, cfg, run, batch) -> None:
+    """(a)'s check: one ``loop.value_and_grad`` of ``run`` at ``batch``
+    without remat, then with it, on seeded float32 params; each peak is
+    taken above what was allocated before it.  Gates: the two losses equal
+    bit for bit (remat changes nothing before the backward), the gradients
+    within 1e-5 of each leaf's largest, the remat peak below the other."""
+    import dataclasses
+
+    from repro_torch.models import registry
+    from repro_torch.train import loop, optim
+
+    params = registry.init_params(cfg, run,
+                                  torch.Generator(dev).manual_seed(0), dev)
+    out = {}
+    for remat in (False, True):
+        grad_fn = loop.value_and_grad(cfg, dataclasses.replace(run,
+                                                               remat=remat))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads = grad_fn(params, batch)
+        torch.cuda.synchronize()
+        out[remat] = (loss, optim.tree_leaves(grads),
+                      time.perf_counter() - t0,
+                      (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+        del grads
+    (l0, g0, w0, p0), (l1, g1, w1, p1) = out[False], out[True]
+    worst = _grads_per_leaf_close("dryrun (a) remat against no remat", g1,
+                                  g0)
+    print(f"dryrun (a) {cfg.arch} value_and_grad, B 1 x S "
+          f"{len(batch['tokens'][0])}, bf16 compute: loss "
+          f"{l0.item():.6f} without remat, {l1.item():.6f} with (gate: bit "
+          f"for bit, {torch.equal(l0, l1)}); gradients within {worst:.3e} of "
+          f"each leaf's largest (gate 1e-5); wall {w0:.4f} s and {w1:.4f} s; "
+          f"peak above the params {p0:.2f} GiB without remat, {p1:.2f} GiB "
+          f"with", flush=True)
+    if not torch.equal(l0, l1):
+        raise CheckFailed(f"dryrun (a): the loss with remat {l1.item()} is "
+                          f"not the loss without {l0.item()} bit for bit")
+    if not p1 < p0:
+        raise CheckFailed(f"dryrun (a): the remat peak {p1:.2f} GiB is not "
+                          f"below the peak without remat {p0:.2f} GiB")
+    del params, out, g0, g1
+    torch.cuda.empty_cache()
+
+
+def dryrun_serve(torch, dev, counters, cfg) -> int:
+    """(c) The serve config: the bf16 prefill (B 1 x S PREFILL_TOKENS) on
+    ``cast_params(params, bf16)`` with bf16 params and compute, against the
+    bf16 prefill on the float32 params (phase 8's); then one ``kv_tau``
+    request on the bf16 params.  Gates: the two prefills' logits equal bit
+    for bit (both round each weight to nearest even once, then run the same
+    kernels), flash once a layer; the request completes and launches the
+    quantize kernel on bf16, every launch of it; on the engine's prefilled
+    bf16 cache, the kernel equals its plain version and the float32
+    formula bit for bit.  Returns the request's launches."""
+    import numpy as np
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import registry, transformer
+    from repro_torch.runtime import kvcache
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, _ = _seeded_model(torch, dev, cfg, RunConfig(), gen)
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL_TOKENS), generator=gen,
+                           device=dev)
+    api = registry.get_model(cfg)
+    run16 = RunConfig(compute_dtype="bfloat16")
+    serve = RunConfig(param_dtype="bfloat16", compute_dtype="bfloat16")
+    p16 = transformer.cast_params(params, serve.param_dtype)
+    rows = {}
+    for label, p, run in (("float32 params", params, run16),
+                          ("bfloat16 params", p16, serve)):
+        rows[label] = lm_prefill(torch, api, p, cfg, run, tokens,
+                                 "flash_attention", counters, {})
+    same = torch.equal(api.forward(params, cfg, run16, tokens),
+                       api.forward(p16, cfg, serve, tokens))
+    for label, r in rows.items():
+        print(f"dryrun (c) {cfg.arch} bf16 prefill on {label}: B 1 x S "
+              f"{PREFILL_TOKENS}, wall {r['wall']:.4f} s, device busy "
+              f"{r['busy']:.3f} ms, flash_attention {r['mine']:.3f} ms, "
+              f"cast/copy kernels {r['copy']:.3f} ms; most device time: "
+              + "; ".join(f"{name} {ms:.3f} ms ({share:.4f})"
+                          for name, ms, share in r["top"]), flush=True)
+    print(f"dryrun (c) logits on bf16 params equal those on float32 params "
+          f"bit for bit: {same}", flush=True)
+    if not same:
+        raise CheckFailed("dryrun (c): the bf16 prefill on bf16 params is "
+                          "not the bf16 prefill on float32 params bit for bit")
+    del params, rows
+    torch.cuda.empty_cache()
+
+    dtypes = []
+    real = kvcache.quantize_fused
+
+    def recording(x, bin_size):
+        dtypes.append(x.dtype)
+        return real(x, bin_size)
+
+    rng = np.random.default_rng(0)
+    req = Request(rid=0, prompt=rng.integers(0, cfg.vocab, SERVE["prompt"])
+                  .astype(np.int32), max_new_tokens=SERVE["new"])
+    eng = ServeEngine(cfg, serve, p16, batch_size=1, max_len=SERVE["max_len"],
+                      kv_tau=KV_TAU, device=dev)
+    for c in counters.values():
+        c.reset()
+    kvcache.quantize_fused = recording
+    try:
+        t0 = time.perf_counter()
+        outs = eng.serve([req])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        kvcache.quantize_fused = real
+    n = counters["quantize"].value
+    new = sum(len(c.tokens) for c in outs)
+    print(f"dryrun (c) serve on bf16 params (kv_tau {KV_TAU}): 1 request, "
+          f"prompt {SERVE['prompt']}, {new} new tokens in {wall:.4f} s; "
+          f"quantize launched {n} times, on "
+          f"{sorted({str(d) for d in dtypes})}", flush=True)
+    if len(outs) != 1 or new != SERVE["new"]:
+        raise CheckFailed(f"dryrun (c): the kv_tau request gave {len(outs)} "
+                          f"completions, {new} tokens")
+    if n <= 0 or n != len(dtypes) or set(dtypes) != {torch.bfloat16}:
+        raise CheckFailed(f"dryrun (c): quantize launched {n} times on "
+                          f"{dtypes}, not on the bf16 cache alone")
+    # the kernel on that path's own input: the engine's prefilled bf16 cache
+    caches = _kv_cache(eng.prefill(tokens[:, :SERVE["prompt"]],
+                                   api.init_decode_state(
+                                       p16, cfg, serve, 1,
+                                       SERVE["max_len"]))[0])
+    if caches.k.dtype != torch.bfloat16:
+        raise CheckFailed(f"dryrun (c): the prefilled cache is "
+                          f"{caches.k.dtype}, not bf16")
+    _check_kv_quantize(torch, cfg.arch, caches)
+    del p16, eng, caches
+    torch.cuda.empty_cache()
+    return n
+
+
+def _param_count(torch, dev, cfg, run) -> int:
+    """``cfg``'s params, counted before the model is made: seeded inits of
+    one and of two layers at full width (every layer holds as many)."""
+    import dataclasses
+
+    from repro_torch.models import registry
+
+    counts = []
+    for n_layers in (1, 2):
+        p = registry.init_params(dataclasses.replace(cfg, n_layers=n_layers),
+                                 run, torch.Generator(dev).manual_seed(0),
+                                 dev)
+        counts.append(sum(_numel(p)))
+        del p
+    torch.cuda.empty_cache()
+    return counts[0] + (cfg.n_layers - 1) * (counts[1] - counts[0])
+
+
+def _bf16_train_peak_gib(cfg, n_params: int, seq: int) -> tuple:
+    """(d)'s reckoned peak and its terms, GiB.  At the update: the old and
+    the new state (bf16 params, float32 ``mu`` and ``nu``: the functional
+    step's copies), the bf16 gradients and Adam's temporaries.  In the
+    backward: one state, the gradients, the bf16 layer inputs that remat
+    keeps and the plain flash backward's float32 scores of one layer (its
+    scores, probabilities and their gradient)."""
+    gib = 2 ** 30
+    params = 2 * n_params / gib
+    moments = 8 * n_params / gib
+    kept = cfg.n_layers * seq * cfg.d_model * 2 / gib
+    scores = 3 * cfg.n_heads * seq * seq * 4 / gib
+    update = 2 * (params + moments) + params + ADAM_TEMP_GIB
+    backward = params + moments + params + kept + scores
+    return max(update, backward), {
+        "params": params, "mu + nu": moments, "kept inputs": kept,
+        "flash backward scores": scores, "update": update,
+        "backward": backward}
+
+
+def dryrun_granite(torch, dev, counters) -> None:
+    """(d) granite-moe-3b-a800m at full width and depth, TRAIN_STEPS AdamW
+    steps of B 1 x S TRAIN_SEQ (S 2048 where the reckoned peak passes
+    TRAIN_PEAK_GIB_MAX) with bf16 params and compute and remat; the
+    routing of step 0's batch on the initial params printed.  The gates of
+    ``train_full``, flash 2 x 32 a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+    from repro_torch.models import registry
+
+    cfg = get_config(GRANITE)
+    run = RunConfig(param_dtype="bfloat16", compute_dtype="bfloat16",
+                    remat=True, ce_chunk=TRAIN_CE_CHUNK)
+    n_params = _param_count(torch, dev, cfg, run)
+    seq = TRAIN_SEQ
+    reckoned, terms = _bf16_train_peak_gib(cfg, n_params, seq)
+    if reckoned > TRAIN_PEAK_GIB_MAX:
+        seq = TRAIN_SEQ // 2
+        reckoned, terms = _bf16_train_peak_gib(cfg, n_params, seq)
+    print(f"dryrun (d) {cfg.arch}: {n_params / 1e6:.1f} M params; reckoned "
+          f"peak {reckoned:.2f} GiB at S {seq} (S {TRAIN_SEQ} unless above "
+          f"{TRAIN_PEAK_GIB_MAX}): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in terms.items()), flush=True)
+    corpus = SyntheticCorpus(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=1, seed=0))
+    api = registry.get_model(cfg)
+
+    def routing(state):
+        tokens = torch.as_tensor(corpus.batch_at(0)["tokens"], device=dev)
+        _print_routing(torch, api, state.params, cfg, run, tokens)
+
+    r = train_full(torch, dev, counters, cfg, run, corpus.batch_at, (1, seq),
+                   at_start=routing)
+    print(f"dryrun (d) {cfg.arch}: measured peak {r['peak']:.2f} GiB against "
+          f"the reckoned {reckoned:.2f} GiB", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3463,6 +3798,7 @@ def main() -> int:
         launches.update(run_lm_path(torch, dev, counters))
         launches.update(run_whisper_path(torch, dev, counters))
         launches.update(run_train_path(torch, dev, counters, rows))
+        launches.update(run_dryrun_configs(torch, dev, counters))
         run_parallel_path(torch, dev, counters)
     except (CheckFailed, AssertionError) as e:
         print(f"FAIL: {e}", file=sys.stderr)

@@ -84,9 +84,12 @@ class RunConfig:
     by ``__post_init__``."""
     tp: int = 1                      # size of the "model" mesh axis
     dp: int = 1                      # size of the "data" (x pod) axes
-    param_dtype: str = "float32"
+    param_dtype: str = "float32"     # float32 | bfloat16: the dtype that
+    #                                  train.loop.init_train_state keeps the
+    #                                  params in (models.transformer.cast_params)
     compute_dtype: str = "float32"
-    remat: bool = False
+    remat: bool = False              # recompute each layer's activations in
+    #                                  the backward (models.common.remat)
     use_flash_kernel: bool = False   # kept so configs carry across: the port
     #                                  always calls its kernels' wrappers,
     #                                  which launch on CUDA (ROADMAP.md §3)
@@ -107,13 +110,18 @@ class RunConfig:
     grad_comp_tau: float = 0.0
 
     def __post_init__(self):
-        """The port reads ``tp``, ``compute_dtype``, ``ce_chunk``,
-        ``moe_dispatch_groups``, ``gradient_compression``,
-        ``grad_comp_rank`` and ``grad_comp_tau``,
+        """The port reads ``tp``, ``param_dtype`` ("float32" or
+        "bfloat16"), ``compute_dtype``, ``remat``, ``ce_chunk``,
+        ``moe_dispatch_groups``, ``cast_params_early``,
+        ``gradient_compression``, ``grad_comp_rank`` and ``grad_comp_tau``,
         and accepts either ``use_flash_kernel`` and either ``scan_layers``
         (both compute the same function); every other field must keep its
         default, so a config carried across fails here instead of running
         something else."""
+        if self.param_dtype not in PARAM_DTYPES:
+            raise NotImplementedError(
+                f"RunConfig.param_dtype={self.param_dtype!r}: the port "
+                f"holds params in {PARAM_DTYPES} (ROADMAP.md)")
         for f in dataclasses.fields(self):
             if f.name in _HONOURED or getattr(self, f.name) == f.default:
                 continue
@@ -122,9 +130,11 @@ class RunConfig:
                 f"honours only the default {f.default!r} (ROADMAP.md)")
 
 
-_HONOURED = ("tp", "compute_dtype", "use_flash_kernel", "scan_layers",
-             "ce_chunk", "moe_dispatch_groups", "gradient_compression",
-             "grad_comp_rank", "grad_comp_tau")
+_HONOURED = ("tp", "param_dtype", "compute_dtype", "remat",
+             "use_flash_kernel", "scan_layers", "ce_chunk",
+             "moe_dispatch_groups", "cast_params_early",
+             "gradient_compression", "grad_comp_rank", "grad_comp_tau")
+PARAM_DTYPES = ("float32", "bfloat16")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -115,6 +115,13 @@ def gae_select(residuals: Tensor, basis: Tensor, tau: float,
                         err=err, ok=ok)
 
 
+def gae_apply(x: Tensor, x_r: Tensor, basis: Tensor, tau: float,
+              bin_size: float) -> tuple[Tensor, GAESelection]:
+    """Corrected reconstruction x^G (paper Eq. 10) for a batch of blocks."""
+    sel = gae_select(x - x_r, basis, tau, bin_size)
+    return x_r + sel.corrected, sel
+
+
 def select_host(residuals: np.ndarray, basis: np.ndarray, tau: float,
                 bin_size: float) -> GAESelection:
     """Numpy twin of ``gae_select`` (the JAX package's host encoder), kept

@@ -38,3 +38,8 @@ def dequantize(q: Tensor, bin_size, dtype=torch.float32) -> Tensor:
 def quantize_dequantize(x: Tensor, bin_size) -> Tensor:
     """Fused round-trip: the value the decoder will see."""
     return dequantize(quantize(x, bin_size), bin_size, dtype=x.dtype)
+
+
+def quantization_error_bound(bin_size: float, n: int) -> float:
+    """Worst-case l2 error of uniformly quantizing an n-vector: sqrt(n)*bin/2."""
+    return float(bin_size) * 0.5 * float(n) ** 0.5

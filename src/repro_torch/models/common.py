@@ -170,6 +170,23 @@ def apply_stack(body: Callable, carry, xs):
     return carry
 
 
+def remat(body: Callable, run) -> Callable:
+    """``body`` under ``torch.utils.checkpoint`` when ``run.remat``, as the
+    JAX package wraps a layer body in ``jax.checkpoint``: its forward keeps
+    only its inputs, and the backward runs it again for the rest.  Where
+    autograd records nothing (``torch.no_grad()``, decoding) it is ``body``
+    itself."""
+    if not run.remat:
+        return body
+    from torch.utils.checkpoint import checkpoint
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        return checkpoint(body, *args, use_reentrant=False)
+    return wrapped
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():

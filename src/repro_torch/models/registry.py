@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import bf16
 from repro_torch.core.exec import resolve_device
 
 
@@ -59,13 +60,18 @@ def init_params(cfg: ModelConfig, run: RunConfig, generator: torch.Generator,
 def params_from_jax(tree: Any, device=None) -> dict:
     """The JAX package's param tree (numpy leaves, as ``jax.device_get``
     returns them, stacked-layer axis kept) as tensors on ``device`` with the
-    same paths; a bare array comes back as one tensor."""
+    same paths; a bare array comes back as one tensor.  A bf16 leaf
+    (ml_dtypes' ``bfloat16``, which torch cannot read) comes across bit for
+    bit through its uint16 view."""
     device = resolve_device(device)
 
     def convert(node):
         if isinstance(node, dict):
             return {k: convert(v) for k, v in node.items()}
-        return torch.from_numpy(np.array(node)).to(device)
+        arr = np.array(node)
+        if bf16.is_bf16(arr):
+            return bf16.from_bits(arr).to(device)
+        return torch.from_numpy(arr).to(device)
     return convert(tree)
 
 

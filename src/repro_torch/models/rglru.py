@@ -28,8 +28,9 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common
 from repro_torch.models.common import (apply_stack, compute_dtype, embed,
-                                       gelu, lecun_init, randn, rmsnorm,
-                                       rmsnorm_init, swiglu_init, uniform)
+                                       gelu, lecun_init, randn, remat,
+                                       rmsnorm, rmsnorm_init, swiglu_init,
+                                       uniform)
 
 Tensor = torch.Tensor
 _C = 8.0  # RG-LRU decay sharpness constant
@@ -97,8 +98,11 @@ def _lru_coeffs(p: dict, xc: Tensor) -> tuple[Tensor, Tensor]:
     """a_t and b_t of the diagonal recurrence h_t = a_t h_{t-1} + b_t, in
     float32."""
     x32 = xc.to(torch.float32)
-    r = torch.sigmoid(x32 @ p["rec_gate"]["w"] + p["rec_gate"]["b"])
-    i = torch.sigmoid(x32 @ p["in_gate"]["w"] + p["in_gate"]["b"])
+    # bf16 gate weights go up to float32, as JAX's promotion takes them
+    r = torch.sigmoid(x32 @ p["rec_gate"]["w"].to(torch.float32)
+                      + p["rec_gate"]["b"])
+    i = torch.sigmoid(x32 @ p["in_gate"]["w"].to(torch.float32)
+                      + p["in_gate"]["b"])
     log_a = -_C * F.softplus(p["alpha"]) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) \
@@ -202,7 +206,8 @@ def forward(params: dict, cfg: ModelConfig, run: RunConfig, tokens: Tensor,
         h = _rec_block(tp["rec2"], cfg, h)
         return _attn_block(tp["attn_layer"], cfg, h, positions)
 
-    x = apply_stack(body, x, params["triples"])
+    # remat wraps each triple, not the tail, as in the JAX package
+    x = apply_stack(remat(body, run), x, params["triples"])
     if "tail" in params:
         x = apply_stack(lambda h, tp: _rec_block(tp, cfg, h), x,
                         params["tail"])

@@ -18,7 +18,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import common
 from repro_torch.models.common import (apply_stack, compute_dtype, embed,
-                                       lecun_init, randn, rmsnorm,
+                                       lecun_init, randn, remat, rmsnorm,
                                        rmsnorm_init, uniform)
 
 Tensor = torch.Tensor
@@ -145,7 +145,7 @@ def forward(params: dict, cfg: ModelConfig, run: RunConfig,
     """tokens (B, S) -> logits (B, S, padded_vocab), or with
     ``return_hidden`` the final normed hidden states (B, S, d_model)."""
     x = embed(params["embed"], tokens).to(compute_dtype(run))
-    x = apply_stack(lambda h, lp: _block_forward(lp, cfg, h), x,
+    x = apply_stack(remat(lambda h, lp: _block_forward(lp, cfg, h), run), x,
                     params["layers"])
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if return_hidden:

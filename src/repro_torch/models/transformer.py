@@ -22,9 +22,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import common
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (apply_stack, compute_dtype, embed,
-                                       layer, lecun_init, randn, rmsnorm,
-                                       rmsnorm_init, swiglu, swiglu_init,
-                                       unembed)
+                                       layer, lecun_init, randn, remat,
+                                       rmsnorm, rmsnorm_init, swiglu,
+                                       swiglu_init, unembed)
 
 Tensor = torch.Tensor
 
@@ -129,6 +129,24 @@ def init_params(cfg: ModelConfig, run: RunConfig, generator: torch.Generator,
     return params
 
 
+def cast_params(params: dict, dtype) -> dict:
+    """``params`` with every floating tensor leaf cast to ``dtype`` (a torch
+    dtype or its name); integer and non-tensor leaves as they are, as the
+    JAX package's ``cast_params``.  Any family's tree."""
+    return _cast(params, getattr(torch, dtype) if isinstance(dtype, str)
+                 else dtype)
+
+
+def _cast(node, dtype):
+    if isinstance(node, dict):
+        return {k: _cast(v, dtype) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_cast(v, dtype) for v in node)
+    if isinstance(node, Tensor) and node.is_floating_point():
+        return node.to(dtype)
+    return node
+
+
 # ---------------------------------------------------------------------------
 # forward (prefill)
 # ---------------------------------------------------------------------------
@@ -155,18 +173,18 @@ def forward(params: dict, cfg: ModelConfig, run: RunConfig, tokens: Tensor,
     x = embed(params["embed"], tokens).to(compute_dtype(run))
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
+    # remat: each self-attention layer, not the VLM's cross layer (as JAX)
+    self_body = remat(lambda h, lp: _self_layer(lp, cfg, run, h, positions),
+                      run)
     if cfg.family == "vlm":
         vision = _vision(params, run, vision_embeds)
 
         def group_body(h, gp):
-            h = apply_stack(lambda hh, lp: _self_layer(lp, cfg, run, hh,
-                                                       positions),
-                            h, gp["selfs"])
+            h = apply_stack(self_body, h, gp["selfs"])
             return _cross_layer(gp["cross"], cfg, run, h, vision)
         x = apply_stack(group_body, x, params["groups"])
     else:
-        x = apply_stack(lambda h, lp: _self_layer(lp, cfg, run, h, positions),
-                        x, params["layers"])
+        x = apply_stack(self_body, x, params["layers"])
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if return_hidden:
         return x

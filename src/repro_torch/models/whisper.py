@@ -32,7 +32,7 @@ from repro_torch.models.common import (apply_stack, compute_dtype,
                                        cross_entropy_loss, embed,
                                        embedding_init, gelu_mlp,
                                        gelu_mlp_init, layer, layernorm,
-                                       layernorm_init, randn,
+                                       layernorm_init, randn, remat,
                                        sincos_positions)
 
 Tensor = torch.Tensor
@@ -89,7 +89,7 @@ def encode(params: dict, cfg: ModelConfig, run: RunConfig,
         z = layernorm(lp["ln2"], h)
         return h + gelu_mlp(lp["mlp"], z)
 
-    x = apply_stack(body, x, params["enc_layers"])
+    x = apply_stack(remat(body, run), x, params["enc_layers"])
     return layernorm(params["enc_final_ln"], x)
 
 
@@ -120,8 +120,8 @@ def forward(params: dict, cfg: ModelConfig, run: RunConfig, tokens: Tensor,
     x = embed(params["embed"], tokens).to(dt) + pos_table[pos].to(dt)[None]
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
-    x = apply_stack(lambda h, lp: _dec_layer(lp, h, positions, enc_out), x,
-                    params["dec_layers"])
+    x = apply_stack(remat(lambda h, lp: _dec_layer(lp, h, positions, enc_out),
+                          run), x, params["dec_layers"])
     x = layernorm(params["dec_final_ln"], x)
     logits = x @ params["embed"]["w"].to(dt).T
     pv = cfg.padded_vocab(run.tp)

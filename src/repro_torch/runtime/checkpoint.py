@@ -27,6 +27,12 @@ port's own ``NamedTuple`` classes (``TrainState``, ``AdamState``,
 wrote restores here; the port writes no ``treedef.pkl``, so its steps do not
 restore in the JAX package.  Cross-reading goes one way, JAX to port.
 
+A bf16 leaf is written as its uint16 bits with ``"dtype": "bfloat16"`` in
+the manifest, the two bytes a value and the name that the JAX package
+writes (it stores ml_dtypes' ``|V2``); ``restore`` and
+``restore_compressed`` rebuild ``torch.bfloat16`` from the manifest's dtype
+whichever of the two the file holds.
+
 ``save_compressed`` writes the port's own container (one ``.npz`` file with
 a JSON manifest; nothing pickled): every float tensor of at least
 ``min_size`` elements is encoded with the paper's PCA-GAE machinery such
@@ -44,7 +50,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import entropy, gae
+from repro_torch.core import bf16, entropy, gae
 from repro_torch.core.exec import resolve_device
 from repro_torch.runtime.grad_compress import GradCompressionState
 from repro_torch.train.loop import TrainState
@@ -58,33 +64,52 @@ _SEP = "/"
 
 def _to_numpy(leaf) -> np.ndarray:
     """A host copy of ``leaf`` that shares no memory with it (``.cpu()`` of
-    a CPU tensor would be the tensor itself)."""
+    a CPU tensor would be the tensor itself); a bf16 leaf as its uint16
+    bits, the two bytes a value that the JAX package's files hold."""
+    if bf16.is_bf16(leaf):
+        return bf16.to_bits(leaf)
     if isinstance(leaf, Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
 
 
-def _flatten_with_paths(tree: PyTree) -> list[tuple[str, np.ndarray]]:
-    """(path, host array) for every leaf, in ``jax.tree.flatten`` order."""
-    out = []
+def _from_numpy(arr: np.ndarray, dtype: str) -> Tensor:
+    """The tensor of a host array whose manifest dtype is ``dtype``: a bf16
+    leaf from its two bytes a value, whether they were written as uint16
+    (the port) or as ml_dtypes' ``|V2`` (the JAX package)."""
+    if dtype == bf16.NAME:
+        return bf16.from_bits(arr)
+    return torch.from_numpy(arr)
 
-    def walk(node, keys):
-        if node is None:
-            return
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], keys + [str(k)])
-        elif isinstance(node, tuple) and hasattr(node, "_fields"):
-            for f, v in zip(node._fields, node):
-                walk(v, keys + ["." + f])
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                walk(v, keys + [str(i)])
-        else:
-            out.append((_SEP.join(keys), _to_numpy(node)))
 
-    walk(tree, [])
+def _flatten_with_paths(tree: PyTree) -> list[tuple[str, np.ndarray, str]]:
+    """(path, host array, dtype) for every leaf, in ``jax.tree.flatten``
+    order; the dtype is the manifest's (JAX's name), "bfloat16" for a bf16
+    leaf held as its uint16 bits."""
+    out: list = []
+    _walk(tree, [], out)
     return out
+
+
+def _walk(node, keys: list, out: list) -> None:
+    # a module-level recursion: a nested one would hold itself, and with it
+    # ``out`` and every host copy, in a reference cycle until the cyclic
+    # collector ran
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], keys + [str(k)], out)
+    elif isinstance(node, tuple) and hasattr(node, "_fields"):
+        for f, v in zip(node._fields, node):
+            _walk(v, keys + ["." + f], out)
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _walk(v, keys + [str(i)], out)
+    else:
+        arr = _to_numpy(node)
+        out.append((_SEP.join(keys), arr,
+                    bf16.NAME if bf16.is_bf16(node) else str(arr.dtype)))
 
 
 def _namedtuple(fields: dict):
@@ -205,11 +230,11 @@ class CheckpointManager:
         manifest = {"step": step, "format": "npz-v1",
                     "extra": extra or {}, "tensors": [
                         {"path": path, "key": f"t{i}",
-                         "shape": list(arr.shape), "dtype": str(arr.dtype),
+                         "shape": list(arr.shape), "dtype": dtype,
                          "sha256": _sha(arr)}
-                        for i, (path, arr) in enumerate(leaves)]}
+                        for i, (path, arr, dtype) in enumerate(leaves)]}
         _fsync_write(os.path.join(tmp, "arrays.npz"), lambda f: np.savez(
-            f, **{f"t{i}": arr for i, (_, arr) in enumerate(leaves)}))
+            f, **{f"t{i}": arr for i, (_, arr, _) in enumerate(leaves)}))
         _fsync_write(os.path.join(tmp, "manifest.json"), lambda f: f.write(
             json.dumps(manifest, indent=1).encode()))
         if os.path.isdir(final):
@@ -238,11 +263,14 @@ class CheckpointManager:
                 last_err = e
                 continue
             return s, _unflatten_paths(
-                [(p, torch.from_numpy(a).to(device)) for p, a in leaves])
+                [(p, _from_numpy(a, dtype).to(device))
+                 for p, a, dtype in leaves])
         raise FileNotFoundError(
             f"no restorable checkpoint in {self.dir!r}") from last_err
 
-    def _read(self, step: int) -> list[tuple[str, np.ndarray]]:
+    def _read(self, step: int) -> list[tuple[str, np.ndarray, str]]:
+        """(path, host array, manifest dtype) of every leaf of ``step``,
+        each checked against its hash."""
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -253,7 +281,7 @@ class CheckpointManager:
                 if _sha(arr) != t["sha256"]:
                     raise IOError(f"hash mismatch for {t['path']} at step "
                                   f"{step}")
-                leaves.append((t["path"], arr))
+                leaves.append((t["path"], arr, t["dtype"]))
         return leaves
 
 
@@ -274,18 +302,18 @@ def save_compressed(path: str, tree: PyTree, *, tau: float,
     (basis from the tensor's own blocks, fit and selected on ``device``, the
     card by default; top-M quantized coefficients per block; Huffman +
     index-bitmask bitstream) such that every block satisfies
-    ||x - x^G||_2 <= tau on restore.  Small, non-float and incompressible
-    tensors are stored raw.  Returns size accounting {raw_bytes,
-    compressed_bytes, ratio}.
+    ||x - x^G||_2 <= tau on restore.  Small, non-float (bf16 among them,
+    as in the JAX package) and incompressible tensors are stored raw.
+    Returns size accounting {raw_bytes, compressed_bytes, ratio}.
     """
     device = resolve_device(device)
     manifest: dict[str, Any] = {"format": COMPRESSED_FORMAT, "tensors": []}
     arrays: dict[str, np.ndarray] = {}
     raw_bytes = comp_bytes = 0
-    for i, (tpath, arr) in enumerate(_flatten_with_paths(tree)):
+    for i, (tpath, arr, dtype) in enumerate(_flatten_with_paths(tree)):
         raw_bytes += arr.nbytes
         entry: dict[str, Any] = {"path": tpath, "shape": list(arr.shape),
-                                 "dtype": str(arr.dtype), "kind": "raw"}
+                                 "dtype": dtype, "kind": "raw"}
         key = f"t{i}"
         coded = None
         if arr.dtype.kind == "f" and arr.size >= min_size:
@@ -386,6 +414,6 @@ def restore_compressed(path: str, device=None) -> PyTree:
                 if entry["pad"]:
                     flat = flat[:-entry["pad"]]
                 arr = flat.astype(np.dtype(entry["dtype"])).reshape(shape)
-            leaves.append((entry["path"], torch.from_numpy(
-                np.ascontiguousarray(arr)).to(device)))
+            leaves.append((entry["path"], _from_numpy(
+                np.ascontiguousarray(arr), entry["dtype"]).to(device)))
     return _unflatten_paths(leaves)

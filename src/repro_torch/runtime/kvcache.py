@@ -102,14 +102,26 @@ def decompress_pages(store: CompressedKVStore) -> np.ndarray:
                                  store.bin_size)
 
 
+def attention_perturbation_bound(tau: float, page_elems: int,
+                                 n_pages: int) -> float:
+    """Worst-case l2 perturbation of the attention *input* (the concatenated
+    KV) given per-page ||dK||_2 <= tau: sqrt(n_pages) * tau (pages are
+    disjoint coordinates).  Normalized per element: tau / sqrt(page_elems)."""
+    return float(np.sqrt(n_pages) * tau)
+
+
 def quantize_kv_bounded(kv: Tensor, tau_per_token: float) -> Tensor:
     """Uniform KV quantization with a per-token l2 guarantee: bin =
     2 tau / sqrt(KV*hd) makes the worst-case per-token quantization error
     exactly tau.  kv: (..., KV, hd).  The dequantized values come from the
-    fused quantize kernel (its plain version on the CPU), run in float32 on
-    the (..., KV*hd) view."""
+    fused quantize kernel (its plain version on the CPU) on the
+    (..., KV*hd) view, in float32; a bf16 cache goes in as it is (the
+    kernel reads it into float32 and rounds the dequantized value to bf16
+    once, as a cast before and after it would)."""
     d = kv.shape[-1] * kv.shape[-2]
     bin_size = 2.0 * tau_per_token / float(np.sqrt(d))
-    flat = kv.reshape(*kv.shape[:-2], d).to(torch.float32).contiguous()
-    _, deq, _ = quantize_fused(flat, bin_size)
+    flat = kv.reshape(*kv.shape[:-2], d)
+    if flat.dtype != torch.bfloat16:
+        flat = flat.to(torch.float32)
+    _, deq, _ = quantize_fused(flat.contiguous(), bin_size)
     return deq.reshape(kv.shape).to(kv.dtype)

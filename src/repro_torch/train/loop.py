@@ -41,6 +41,7 @@ from repro_torch.core.exec import resolve_device
 from repro_torch.launch.mesh import (Mesh, bound_axis, check_device_type,
                                      data_devices)
 from repro_torch.models import registry
+from repro_torch.models.transformer import cast_params
 from repro_torch.parallel import collectives
 from repro_torch.runtime import grad_compress
 from repro_torch.train import optim
@@ -62,10 +63,13 @@ def init_train_state(generator: torch.Generator, cfg: ModelConfig,
                      run: RunConfig, optimizer: optim.Optimizer,
                      device=None) -> TrainState:
     """Seeded params (``registry.init_params``) on ``device`` (the card by
-    default), the optimizer's state and, for ``pca_ef``, the compression
-    state."""
+    default) in ``run.param_dtype``, the optimizer's state (Adam's moments
+    in float32 whatever the params' dtype, as in JAX) and, for ``pca_ef``,
+    the compression state."""
     device = resolve_device(device)
     params = registry.init_params(cfg, run, generator, device)
+    if run.param_dtype != "float32":
+        params = cast_params(params, run.param_dtype)
     gc = None
     if run.gradient_compression == "pca_ef":
         gc = grad_compress.init_state(params, rank=run.grad_comp_rank)
@@ -96,13 +100,22 @@ def value_and_grad(cfg: ModelConfig, run: RunConfig,
     and ``batch`` ("tokens" and "labels", (B, S) ints, numpy or tensors)
     goes to the params' device.  ``microbatches`` > 1 splits the batch along axis 0 and accumulates the
     gradients in fp32 (sequential microbatching): the mean of the
-    microbatches' losses and gradients."""
+    microbatches' losses and gradients.
+
+    With ``run.cast_params_early`` and a compute dtype other than the
+    params', the params are cast to the compute dtype inside the loss (as
+    JAX's ``loss_fn``): the gradients are taken through the cast, in the
+    params' dtype."""
     api = registry.get_model(cfg)
+    early = run.cast_params_early and run.compute_dtype != run.param_dtype
 
     def one(params: PyTree, batch: dict) -> tuple[Tensor, PyTree]:
         leaves = [p.detach().requires_grad_() for p in
                   optim.tree_leaves(params)]
-        loss = api.train_loss(optim.tree_unflatten(params, leaves), cfg, run,
+        tree = optim.tree_unflatten(params, leaves)
+        if early:
+            tree = cast_params(tree, run.compute_dtype)
+        loss = api.train_loss(tree, cfg, run,
                               _on_device(batch, leaves[0].device))
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), optim.tree_unflatten(params, list(grads))

@@ -70,7 +70,13 @@ def tree_zeros_like(tree: PyTree, dtype=None) -> PyTree:
 
 
 def global_norm(tree: PyTree) -> Tensor:
-    leaves = tree_leaves(tree)
+    """The l2 norm of every leaf together, its squares summed in float32.  A
+    leaf in another dtype (bf16) of more than ``GROUP_BYTES // 4`` elements
+    is summed in flat pieces of at most that many (``_cut``), so that its
+    float32 copy never exists whole; a float32 leaf is summed whole."""
+    leaves = [piece for x in tree_leaves(tree)
+              for piece in ([x] if x.dtype == torch.float32
+                            else _cut([x], read_only=True))]
     if not leaves:
         return torch.zeros(())
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
@@ -141,10 +147,10 @@ def _device(params: PyTree) -> Optional[torch.device]:
     return leaves[0].device if leaves else None
 
 
-# the leaves of one foreach pass hold at most this many bytes (a larger leaf
-# is cut into flat views of at most that many fp32 elements' bytes): each of
-# Adam's ~8 temporaries is that large, not the model's size, so an LM's
-# update fits beside its params, moments and grads
+# the leaves of one foreach pass hold at most this many bytes as float32 (a
+# larger leaf is cut into flat views of at most that many fp32 elements'
+# bytes): each of Adam's ~8 temporaries is that large, not the model's
+# size, so an LM's update fits beside its params, moments and grads
 GROUP_BYTES = 1 << 28
 
 
@@ -166,11 +172,12 @@ def _cut(leaves: list[Tensor], read_only: bool = False) -> list[Tensor]:
 
 
 def _groups(leaves: list[Tensor]):
-    """``(lo, hi)`` index ranges of consecutive leaves, each range's bytes at
-    most ``GROUP_BYTES`` unless it is one leaf."""
+    """``(lo, hi)`` index ranges of consecutive leaves, each range at most
+    ``GROUP_BYTES`` in float32 (the dtype of Adam's temporaries, whatever
+    the params') unless it is one leaf."""
     lo, size = 0, 0
     for i, x in enumerate(leaves):
-        n = x.numel() * x.element_size()
+        n = x.numel() * 4
         if i > lo and size + n > GROUP_BYTES:
             yield lo, i
             lo, size = i, 0

@@ -113,8 +113,7 @@ def _leaves(tree):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("param_dtype", "bfloat16"), ("dp", 2), ("remat", True), ("sp", True),
-    ("cast_params_early", True)])
+    ("param_dtype", "float16"), ("dp", 2), ("sp", True)])
 def test_run_config_refuses_what_the_port_does_not_honour(field, value):
     JRunConfig(**{field: value})             # the JAX package takes it
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -132,6 +131,11 @@ def test_run_config_takes_what_the_port_honours():
     assert RunConfig(**train) == dataclasses.replace(RunConfig(), **train)
     # per-group MoE dispatch (tests/test_torch_moe.py holds it to JAX's)
     assert RunConfig(moe_dispatch_groups=2).moe_dispatch_groups == 2
+    # the dry-run's run configs (tests/test_torch_run_config.py)
+    dry = dict(param_dtype="bfloat16", compute_dtype="bfloat16", remat=True,
+               cast_params_early=True)
+    JRunConfig(**dry)
+    assert RunConfig(**dry) == dataclasses.replace(RunConfig(), **dry)
     assert ({f.name for f in dataclasses.fields(RunConfig)}
             == {f.name for f in dataclasses.fields(JRunConfig)})
 
