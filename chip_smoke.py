@@ -113,7 +113,8 @@ Phases, each reported on its own lines:
    the routing flips between the two counted); granite's routing at the
    published capacity factor (``moe_router_stats`` and the dropped share);
    the device time of one ``decode_step`` against its wall, and
-   ``ServeEngine.serve`` on 8 requests with raw KV and with ``kv_tau``
+   ``ServeEngine.serve`` on 8 requests (4-token prompts, 4 new tokens)
+   with raw KV and with ``kv_tau``
    0.05 (each VLM request with its own vision embeddings as its frontend;
    quantize launched for every model's KV caches), and the peak device
    memory of each model's run; then llama4-scout-17b-a16e (4 of 48 layers)
@@ -127,7 +128,7 @@ Phases, each reported on its own lines:
    and the consistency gate as above, the quantize kernel on a prefilled
    decoder cache with the cross K/V left raw by ``kv_tau``, and
    ``ServeEngine.serve`` of 8 requests (whisper's 4-token start sequence,
-   32 new tokens, a 448-token cache), each with its own seeded frames as
+   8 new tokens, a 448-token cache), each with its own seeded frames as
    its frontend, with raw KV and ``kv_tau`` 0.05 (gates: 24 flash launches
    and, with ``kv_tau``, 2 quantize launches for each admitted request);
 9. LM training: gae_project and quantize at (841728, 256), the shape a
@@ -144,11 +145,13 @@ Phases, each reported on its own lines:
    steps, peak memory); on seeded full-width mamba2-370m params, the gae mode's
    gradients within tau 1e-3 in every block (ssd_scan once per layer,
    quantize and gae_project once per leaf) and ``save_compressed`` /
-   ``restore_compressed`` at tau 0.45 with every block within it;
-   mamba2-370m through ``python -m repro_torch.launch.train`` (2 steps
-   with a checkpoint every 2 and ``--grad-compression pca_ef`` at once,
-   then ``--resume`` for 2 more and ``--grad-compression gae`` at once;
-   gates: exit 0, ``resumed at step 2``, ssd_scan 48 launches a step, the
+   ``restore_compressed`` at tau 0.45 with every block within it (the
+   checkpoint of 12 of its 48 layers, full width);
+   reduced mamba2-370m through ``python -m repro_torch.launch.train`` (2
+   steps with a checkpoint every 2 and ``--grad-compression pca_ef`` at
+   once, then ``--resume`` for 2 more and ``--grad-compression gae`` at
+   once; gates: exit 0, ``resumed at step 2``, ssd_scan once a layer a
+   step, the
    gae run's quantize and gae_project once per leaf); and a reduced
    ``ResilientRunner`` with ``chaos_wrap`` on the card, which restores
    twice and ends where the uninterrupted run ends (bit for bit is
@@ -194,7 +197,37 @@ Phases, each reported on its own lines:
    one set of params); its peak memory is reckoned first and printed with
    the measured one (S 1024 where the reckoning passes 76 GiB).  Printed:
    walls, device busy, the bubble fraction 3/11, peak memory;
-11. one JSON line with every kernel's numbers (one row per kernel and
+11. tensor parallelism over the card repeated (``parallel/tensor.py``, the
+   ``mesh=`` step of ``train/loop.py`` with a ``"model"`` axis), seeded
+   weights at ``RunConfig(tp=2)``: (a) qwen2-1.5b's TP ``forward`` over
+   (1, 2), fp32, B 1 x S 4096, with ``sp`` off and on (gates: logits
+   within 1e-5 of the largest |logit| of the one-device ``forward``;
+   flash_attention 56 launches a forward; the logged collectives of the
+   forward and of the chunked loss equal their reckoning, counts and
+   bytes), then its gradient (gates: the loss within 1e-5 relative, every
+   leaf, unsharded, within 1e-5 of its largest of one device's); (b) 4 TP
+   AdamW steps with the train config (bf16 compute, remat) at B 1 x S
+   4096 (gates: after one step every param within Adam's first-step bound
+   of the one-device step's, the loss falls, flash 112 a step; the peak
+   printed beside the one-device step's); (c) the gradient and one step
+   over a (2, 2) mesh, B 2 x S 2048 fp32 (the gates of (a), and the
+   logged all-reduces = their reckoning: each row's loss, then the mean
+   over the data shards of every slice once); (d)
+   granite-moe-3b-a800m's EP forward, bf16 params and compute, B 1 x S
+   4096 (gates: 20 experts a shard, the padded vocab, flash 64, the
+   phase-8 bf16 gate on the real columns of the last logits against the
+   fp32-compute forward, or at the first layer's attention output where
+   the TP run routes otherwise than one device; then, always, each
+   layer's EP MoE in fp32 on the one-device fp32 forward's input to it:
+   no routing flip and the output within 1e-5 of the largest |output| of
+   the one-device MoE's; printed: the routing flips and dropped share);
+   (e) ``python -m repro_torch.launch.train
+   --arch qwen2-1.5b --reduced --tp 2 --device cuda:0,cuda:0 --steps 4``
+   (exit 0, flash 32) and ``--tp 2`` with mamba2-370m (exit 2 naming
+   ROADMAP.md) as subprocesses.  Each sub-phase prints its wall, device
+   busy and idle share; flash_attention's rows at the per-shard shapes
+   (``TP_FLASH``) are timed in phase 2 and take their launches from here;
+12. one JSON line with every kernel's numbers (one row per kernel and
    dtype, and the train rows), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -677,6 +710,15 @@ def check_kernels(torch, dev) -> dict:
 SSD_WIDE = "N 256"      # the ssd_scan row of a state in two tiles of 128
 
 
+# phase 11, tensor parallelism: the model axis over the card repeated, and
+# the rows of flash_attention at its per-shard shapes
+TP_N = 2
+TP_DP, TP_DP_SEQ = 2, 2048      # (c): B 2 x S 2048 over a (2, 2) mesh
+TP_STEPS = 4                    # (b)
+TP_FLASH = {"qwen2-1.5b": "qwen2-1.5b tp 2",
+            "granite-moe-3b-a800m": "granite-moe-3b-a800m tp 2"}
+
+
 # flash_attention at the other model paths' shapes, each in rows of its own
 # ("path": the model), reported, not gated: recurrentgemma-9b's local
 # attention (16 query heads on one kv head of 256, causal, window 2048, over
@@ -687,7 +729,9 @@ SSD_WIDE = "N 256"      # the ssd_scan row of a state in two tiles of 128
 # 128, non-causal, 4096 queries on the 1601 vision tokens); whisper-medium's
 # encoder (16 heads of 64 on 16 kv heads, non-causal, T = S = 1500: a ragged
 # last key tile) and cross-attention (its 448 decoder tokens on the 1500
-# frames), at the prefill's B 4.
+# frames), at the prefill's B 4; and the per-shard shapes of phase 11's
+# tensor parallelism at tp 2: qwen2-1.5b's 6 query heads on 1 kv head of
+# 128, granite-moe-3b-a800m's 12 on 4 of 64.
 # (path, b, s, t, h, kv heads, hd, causal, window)
 FA_PATH_CASES = (
     ("recurrentgemma-9b", 1, 4096, 4096, 16, 1, 256, True, 2048),
@@ -696,7 +740,9 @@ FA_PATH_CASES = (
     ("granite-moe-3b-a800m", 1, 4096, 4096, 24, 8, 64, True, 0),
     ("llama-3.2-vision-11b", 1, 4096, 1601, 32, 8, 128, False, 0),
     ("whisper-medium encoder", 4, 1500, 1500, 16, 16, 64, False, 0),
-    ("whisper-medium cross", 4, 448, 1500, 16, 16, 64, False, 0))
+    ("whisper-medium cross", 4, 448, 1500, 16, 16, 64, False, 0),
+    (TP_FLASH["qwen2-1.5b"], 1, 4096, 4096, 6, 1, 128, True, 0),
+    (TP_FLASH["granite-moe-3b-a800m"], 1, 4096, 4096, 12, 4, 64, True, 0))
 
 
 def _flash_path_rows(torch, dev, gen, row, report) -> None:
@@ -1213,7 +1259,7 @@ def run_main_path(torch, dev, counters, kernels, comp, hb) -> dict:
 STREAM_KERNELS = ("quantize", "block_attention", "gae_project")
 # batch and streamed compress in turns, three rounds each: the host coders'
 # wall spreads by a second from run to run
-STREAM_ROUNDS = ("batch", "stream", "stream", "batch", "batch", "stream")
+STREAM_ROUNDS = ("batch", "stream", "stream", "batch")
 SALVAGE_STRIPES = 8     # the salvage run's field: the first 8 stripes
 SINK_FAULT_AFTER = 3    # its sink raises for every chunk after chunk 3
 
@@ -1694,7 +1740,9 @@ CONSISTENCY_PROMPT = 64
 # forward's last logits (the kernels, chunked) against the engine's prefill
 # (one decode step at a time, plain code), fp32 through 28 to 48 layers
 CONSISTENCY_ATOL = 1e-3
-SERVE = dict(requests=8, slots=4, prompt=32, new=16, max_len=128)
+# serving is host-bound (one decode_step a token): 4-token prompts and 4
+# new tokens keep it to 56 decode_step calls a run
+SERVE = dict(requests=8, slots=4, prompt=4, new=4, max_len=128)
 # decode_step calls per request: the prompt's prefill, then all new tokens
 # but the last
 SERVE_STEPS = SERVE["requests"] * (SERVE["prompt"] + SERVE["new"] - 1)
@@ -1705,11 +1753,11 @@ TAIL = 64
 # whisper-medium: prefill over B 4 x 448 decoder tokens (whisper's text
 # context) and B 4 x 1500 frames; serving with its start sequence
 # <|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|> as every
-# prompt, 32 new tokens, the 448-token context as the cache
+# prompt, 8 new tokens, the 448-token context as the cache
 WHISPER = "whisper-medium"
 WHISPER_BATCH, WHISPER_TOKENS = 4, 448
 WHISPER_PROMPT = (50258, 50259, 50359, 50363)
-WHISPER_SERVE = dict(requests=8, slots=4, new=32, max_len=448)
+WHISPER_SERVE = dict(requests=8, slots=4, new=8, max_len=448)
 # the VLM's cross layers' tanh gates are set to seeded values in this range
 # (at their init of 0 a cross layer adds nothing, and no check would see a
 # wrong cross-attention)
@@ -1893,7 +1941,7 @@ def run_lm_path(torch, dev, counters) -> dict:
         gen = torch.Generator(device=dev).manual_seed(0)
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
+        t0 = t_model = time.perf_counter()
         params, extra = _seeded_model(torch, dev, cfg, run, gen)
         api = registry.get_model(cfg)
         n_params = sum(_numel(params))
@@ -2049,7 +2097,8 @@ def run_lm_path(torch, dev, counters) -> dict:
                                           " (an SSM has no KV cache)"),
               flush=True)
         print(f"lm {arch}: peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; wall "
+              f"{time.perf_counter() - t_model:.1f} s", flush=True)
         # free the params before the next model (and the training phase)
         del params, extra, eng, state, full, last, prompt, tokens, reqs
         torch.cuda.empty_cache()
@@ -2498,13 +2547,19 @@ TRAIN_PROFILED = 2        # the last steps, under the profiler
 TRAIN_SEQ = 4096
 TRAIN_CE_CHUNK = 512
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
-# mamba2-370m through the launcher: B 1 x S 2048, two at a time
+# mamba2-370m's gae gradients: B 1 x S 2048
 LAUNCH_SEQ = 2048
+# reduced mamba2-370m through the launcher, B 1 x S 512 (its max_seq), two
+# at a time: at full width each run wrote and hashed 5 GB of state a save,
+# 128-151 s of host work for the four runs
+LAUNCH_REDUCED_SEQ = 512
 # the launcher's gae bound: RunConfig.grad_comp_tau 0 means 1e-3
 GRAD_TAU = 1e-3
 # the compressed checkpoint of the seeded mamba2-370m params: just under
-# the per-block l2 norm (about 0.5) of the lecun-scaled in_proj and unembed
+# the per-block l2 norm (about 0.5) of the lecun-scaled in_proj and unembed;
+# its host coder takes about a second a layer, so the depth is cut to 12
 CKPT_TAU = 0.45
+CKPT_LAYERS = 12
 # the chaos run: reduced qwen2-1.5b, 6 steps, failures at calls 2 and 5,
 # checkpoints every 2 steps; held to the uninterrupted run within 1 % of the
 # summed learning rate (any reduction whose order varies on the card moves
@@ -2530,13 +2585,22 @@ LAUNCHER = (
 def run_train_path(torch, dev, counters, rows) -> dict:
     """Phase 9; returns the launches of the train rows of gae_project and
     quantize (one each per leaf of a gae step through the launcher)."""
-    check_train_kernels(torch, dev, rows)
-    train_card_vs_cpu(torch, dev, counters)
-    train_qwen(torch, dev, counters)
-    train_whisper(torch, dev, counters)
-    n_leaves = train_mamba_in_process(torch, dev, counters)
-    gae = train_launcher(n_leaves)
-    train_chaos(torch, dev)
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed("kernels", check_train_kernels, torch, dev, rows)
+    timed("card vs cpu", train_card_vs_cpu, torch, dev, counters)
+    timed("qwen", train_qwen, torch, dev, counters)
+    timed("whisper", train_whisper, torch, dev, counters)
+    n_leaves = timed("mamba", train_mamba_in_process, torch, dev, counters)
+    gae = timed("launcher", train_launcher, n_leaves)
+    timed("chaos", train_chaos, torch, dev)
+    print(f"train: seconds a sub-phase {json.dumps(walls)}", flush=True)
     return {(name, "float32", "train"): gae[name]
             for name in ("gae_project", "quantize")}
 
@@ -2834,7 +2898,10 @@ def train_mamba_in_process(torch, dev, counters) -> int:
     """On seeded full-width mamba2-370m params: the gae mode's gradients
     within GRAD_TAU in every block (ssd_scan once per layer, quantize and
     gae_project once per leaf), and ``save_compressed``/``restore_compressed``
-    at CKPT_TAU with every block within it.  Returns the number of leaves."""
+    at CKPT_TAU with every block within it, on CKPT_LAYERS of its layers.
+    Returns the number of leaves."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2880,7 +2947,10 @@ def train_mamba_in_process(torch, dev, counters) -> int:
         raise CheckFailed(f"mamba2-370m gae gradients: quantize and "
                           f"gae_project launched {launched}, not once per "
                           f"leaf ({n_leaves})")
-    del grads, bounded
+    del grads, bounded, params
+    ccfg = dataclasses.replace(cfg, n_layers=CKPT_LAYERS)
+    params = registry.init_params(ccfg, run,
+                                  torch.Generator(dev).manual_seed(0), dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "mamba2-370m.gae.npz")
@@ -2895,7 +2965,7 @@ def train_mamba_in_process(torch, dev, counters) -> int:
     errs = [float(_block_errs(np, a, b).max()) for a, b in
             zip(optim.tree_leaves(params), optim.tree_leaves(back))]
     print(f"train mamba2-370m compressed checkpoint of the seeded params "
-          f"(tau {CKPT_TAU}, bin 1e-4, blocks of {GAE_BLOCK}): raw "
+          f"(depth cut: {CKPT_LAYERS} of {cfg.n_layers} layers; tau {CKPT_TAU}, bin 1e-4, blocks of {GAE_BLOCK}): raw "
           f"{size['raw_bytes']} B, compressed {size['compressed_bytes']} B, "
           f"ratio {size['ratio']:.4f}, file {on_disk} B; save {t_save:.2f} s,"
           f" restore {t_restore:.2f} s; largest block l2 error "
@@ -2945,18 +3015,19 @@ def _train_cli_group(runs, env, cwd) -> list:
 
 
 def train_launcher(n_leaves: int) -> dict:
-    """mamba2-370m at full width through ``python -m
+    """Reduced mamba2-370m through ``python -m
     repro_torch.launch.train``: 2 steps with a checkpoint every 2, then
     ``--resume`` for 2 more (two at a time with one step each of
     ``--grad-compression pca_ef`` and ``gae``).  Gates: exit 0 and the
     lines, ssd_scan once per layer a step, and the gae run's quantize and
     gae_project once per leaf.  Returns the gae run's launches."""
     from repro_torch.configs import get_config
+    from repro_torch.models import registry
 
-    layers = get_config("mamba2-370m").n_layers
+    layers = registry.reduced_config(get_config("mamba2-370m")).n_layers
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    common = ["--arch", "mamba2-370m", "--batch", "1", "--seq",
-              str(LAUNCH_SEQ), "--save-every", "2"]
+    common = ["--arch", "mamba2-370m", "--reduced", "--batch", "1", "--seq",
+              str(LAUNCH_REDUCED_SEQ), "--save-every", "2"]
     with tempfile.TemporaryDirectory() as tmp:
         d = {k: os.path.join(tmp, k) for k in ("run", "pca_ef", "gae")}
         first, pca = _train_cli_group(
@@ -3734,6 +3805,625 @@ def parallel_axis_name(torch, dev, counters, cfg, n_params) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: tensor parallelism
+# ---------------------------------------------------------------------------
+
+def _tp_reckoning(cfg, b: int, s: int, tp: int, sp: bool,
+                  loss_chunk: int = -1) -> dict:
+    """The collectives of a dense model's tensor-parallel forward, reckoned
+    from its shapes: without sp, the embedding's all-reduce and 2 a layer
+    of (b, s, d) fp32; with sp, as many reduce-scatters of one shard's
+    (b, s / tp, d), and the all-gathers of each block's input (2 a layer)
+    and of the head's.  ``loss_chunk`` < 0: ``forward``, which all-gathers
+    its logits (b, s, V_padded) fp32; else the loss, chunked by
+    ``loss_chunk`` (0: one chunk of s), whose vocab-parallel CE all-reduces
+    each chunk's rows' max (b, c) and their sums of exponentials and
+    labels' logits (2 x (b, c)) in two ops."""
+    act = b * s * cfg.d_model * 4
+    n = 1 + 2 * cfg.n_layers
+    ops = ({"reduce-scatter": [n, n * act // tp], "all-gather": [n, n * act]}
+           if sp else {"all-reduce": [n, n * act]})
+    if loss_chunk < 0:
+        ag = ops.setdefault("all-gather", [0, 0])
+        ag[0] += 1
+        ag[1] += b * s * cfg.padded_vocab(tp) * 4
+    else:
+        c = loss_chunk or s
+        ar = ops.setdefault("all-reduce", [0, 0])
+        ar[0] += 2 * (s // c)
+        ar[1] += (s // c) * 3 * b * c * 4
+    return {"bytes": {k: v[1] for k, v in ops.items()},
+            "counts": {k: v[0] for k, v in ops.items()},
+            "total_bytes": sum(v[1] for v in ops.values())}
+
+
+def _tp_idle(torch, fn) -> tuple:
+    """(wall ms, device busy ms, idle share) of one ``fn()`` under the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = device_union_ms(torch, prof)
+    return wall, busy, 1 - busy / wall
+
+
+def _unshard_leaves(torch, tree):
+    """The whole tensor of each ``Sharded`` leaf, in ``tree_leaves``
+    order, on its first piece's device: a generator, so that one whole
+    leaf at a time exists."""
+    from repro_torch.parallel import sharding
+
+    for sh in sharding.sharded_leaves(tree):
+        yield sharding.unshard(sh.pieces, sh.spec, sh.mesh)
+
+
+def run_tensor_parallel_path(torch, dev, counters) -> dict:
+    """Phase 11, tensor parallelism over the card repeated: (a) qwen2-1.5b's
+    TP forward and gradient, fp32, against one device's, sp off and on,
+    with the logged collectives against their reckoning; (b) 4 TP AdamW
+    steps with the train config; (c) a GSPMD+TP step over a (2, 2) mesh;
+    (d) granite-moe-3b-a800m's EP forward in bf16 and each layer's EP MoE
+    in fp32; (e) the launcher.
+    Returns flash_attention's launches at its per-shard shapes."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    out, took = {}, {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        got = fn(*args)
+        took[name] = round(time.perf_counter() - t, 1)
+        return got
+
+    out[("flash_attention", "float32", TP_FLASH[cfg.arch])] = timed(
+        "a", tp_forward_and_grad, torch, dev, counters, cfg)
+    out[("flash_attention", "bfloat16", TP_FLASH[cfg.arch])] = timed(
+        "b", tp_train, torch, dev, counters, cfg)
+    timed("c", tp_data_and_model, torch, dev, counters, cfg)
+    out[("flash_attention", "bfloat16", TP_FLASH["granite-moe-3b-a800m"])] \
+        = timed("d", tp_granite, torch, dev, counters)
+    timed("e", tp_launcher)
+    print(f"tp: the phase took {time.perf_counter() - t0:.1f} s (seconds a "
+          f"sub-phase: {json.dumps(took)})", flush=True)
+    return out
+
+
+def tp_forward_and_grad(torch, dev, counters, cfg) -> int:
+    """(a) Seeded fp32 params at ``RunConfig(tp=2)`` sharded over (1, 2)
+    of the card repeated; B 1 x S TRAIN_SEQ.  Gates, sp off and on: the TP
+    ``forward``'s logits within 1e-5 of the largest |logit| of the
+    one-device ``forward``; flash_attention launched once per layer and
+    shard; the logged collectives of ``forward`` and of the loss (no
+    gradient: ce_chunk TRAIN_CE_CHUNK) equal their reckoning, counts and
+    bytes.  Then, sp off, the loss within 1e-5 relative and every gradient
+    leaf, unsharded, within 1e-5 of its largest entry of one device's.
+    Returns the launches of one TP forward."""
+    import dataclasses
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry, transformer
+    from repro_torch.parallel import collectives, sharding
+    from repro_torch.train import loop, optim
+
+    run = RunConfig(tp=TP_N)
+    gen = torch.Generator(dev).manual_seed(0)
+    params = registry.init_params(cfg, run, gen, dev)
+    tokens = torch.randint(0, cfg.vocab, (1, TRAIN_SEQ), generator=gen,
+                           device=dev)
+    labels = torch.randint(0, cfg.vocab, (1, TRAIN_SEQ), generator=gen,
+                           device=dev)
+    batch = {"tokens": tokens, "labels": labels}
+    mesh = make_mesh((1, TP_N), ("data", "model"), [dev] * TP_N)
+    sharded = sharding.shard_params(params, mesh, TP_N)
+    shards = loop.model_shards(sharded, mesh)
+    flash = None
+    with torch.no_grad():
+        one = transformer.forward(params, cfg, run, tokens)
+        scale = one.abs().max().item()
+        for sp in (False, True):
+            r = dataclasses.replace(run, sp=sp)
+            transformer.forward(shards, cfg, r, tokens[:, :256])  # warm-up
+            for c in counters.values():
+                c.reset()
+            collectives.LOG.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = transformer.forward(shards, cfg, r, tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_flash = counters["flash_attention"].value
+            logged = collectives.LOG.summary()
+            err = (got - one).abs().max().item() / scale
+            shape = tuple(got.shape)
+            del got
+            collectives.LOG.reset()
+            transformer.train_loss(shards, cfg, dataclasses.replace(
+                r, ce_chunk=TRAIN_CE_CHUNK), batch)
+            logged_loss = collectives.LOG.summary()
+            p_wall, busy, idle = _tp_idle(
+                torch, lambda: transformer.forward(shards, cfg, r, tokens))
+            want = _tp_reckoning(cfg, 1, TRAIN_SEQ, TP_N, sp)
+            want_loss = _tp_reckoning(cfg, 1, TRAIN_SEQ, TP_N, sp,
+                                      TRAIN_CE_CHUNK)
+            print(f"tp (a) {cfg.arch} forward, fp32, B 1 x S {TRAIN_SEQ}, "
+                  f"tp {TP_N} over {TP_N} x {dev}, sp {sp}: wall "
+                  f"{wall:.4f} s; profiled repeat wall {p_wall:.1f} ms, "
+                  f"device busy {busy:.1f} ms, idle share {idle:.4f}; logits "
+                  f"{shape} within {err:.3e} of the largest |logit| "
+                  f"{scale:.4f} of one device's (gate 1e-5); flash_attention "
+                  f"launched {n_flash} (gate {cfg.n_layers * TP_N}); "
+                  f"logged {json.dumps(logged)} (reckoned "
+                  f"{json.dumps(want)}); the loss's (ce_chunk "
+                  f"{TRAIN_CE_CHUNK}) {json.dumps(logged_loss)} (reckoned "
+                  f"{json.dumps(want_loss)})", flush=True)
+            if not err <= 1e-5:
+                raise CheckFailed(f"tp (a) sp {sp}: logits {err:.3e} of the "
+                                  f"largest from one device's")
+            if n_flash != cfg.n_layers * TP_N:
+                raise CheckFailed(f"tp (a) sp {sp}: flash_attention launched "
+                                  f"{n_flash} times, not "
+                                  f"{cfg.n_layers * TP_N}")
+            if logged != want or logged_loss != want_loss:
+                raise CheckFailed(f"tp (a) sp {sp}: logged {logged} and "
+                                  f"{logged_loss}, reckoned {want} and "
+                                  f"{want_loss}")
+            flash = flash or n_flash
+        del one
+    torch.cuda.empty_cache()
+    grad_run = dataclasses.replace(run, ce_chunk=TRAIN_CE_CHUNK)
+    l_one, g_one = loop.value_and_grad(cfg, grad_run)(params, batch)
+    g_one = optim.tree_leaves(g_one)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l_tp, g_tp = loop.tensor_parallel_value_and_grad(cfg, grad_run, mesh)(
+        sharded, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sharded_paths = sharded
+    del sharded, shards
+    g_tp = list(_unshard_leaves(torch, g_tp))
+    torch.cuda.empty_cache()
+    worst, at = _worst_leaf(g_tp, g_one, _tree_paths(sharded_paths))
+    _grads_per_leaf_close("tp (a) the TP gradient against one device's",
+                          g_tp, g_one)
+    rel = abs(l_tp.item() - l_one.item()) / abs(l_one.item())
+    print(f"tp (a) {cfg.arch} value_and_grad, fp32, ce_chunk "
+          f"{TRAIN_CE_CHUNK}: loss {l_tp.item():.6f} (one device "
+          f"{l_one.item():.6f}, {rel:.3e} relative, gate 1e-5); gradients "
+          f"within {worst:.3e} of each leaf's largest (gate 1e-5; the "
+          f"largest in {at}); TP wall {wall:.3f} s", flush=True)
+    if not rel <= 1e-5:
+        raise CheckFailed(f"tp (a): loss {l_tp.item()} against one device's "
+                          f"{l_one.item()}")
+    del g_tp, g_one
+    torch.cuda.empty_cache()
+    return flash
+
+
+def tp_train(torch, dev, counters, cfg) -> int:
+    """(b) TP_STEPS TP AdamW steps of B 1 x S TRAIN_SEQ over (1, 2) with the
+    train config (bf16 compute, remat, ce_chunk), from the seeded state
+    phase 9 trains.  Gates: after one step every param within Adam's
+    first-step bound of the one-device step's (from each side's gradient,
+    clipped at 1.0); finite losses, the last below step 0's; flash launched
+    2 x layers x shards a step.  Printed: the peak of steps 1-3 against the
+    one-device step's, walls, busy and idle share of the last step
+    (profiled).  The one-device results wait on the card for step 0's
+    check.  Returns one step's flash launches."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import loop, optim
+
+    run = RunConfig(tp=TP_N, compute_dtype="bfloat16", remat=True,
+                    ce_chunk=TRAIN_CE_CHUNK)
+    opt = optim.adamw(optim.warmup_cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                                   TRAIN_STEPS),
+                      weight_decay=0.01, max_grad_norm=1.0)
+    corpus = SyntheticCorpus(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1, seed=0))
+    state = loop.init_train_state(torch.Generator(dev).manual_seed(0), cfg,
+                                  run, opt, dev)
+    batch = corpus.batch_at(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    one, m_one = loop.make_train_step(cfg, run, opt)(state, batch)
+    torch.cuda.synchronize()
+    peak_one = torch.cuda.max_memory_allocated() / 2 ** 30
+    new_one = optim.tree_leaves(one.params)
+    del one
+    _, g = loop.value_and_grad(cfg, run)(state.params, batch)
+    g_one = optim.tree_leaves(g)
+    del g
+    mesh = make_mesh((1, TP_N), ("data", "model"), [dev] * TP_N)
+    state = loop.shard_train_state(state, mesh)
+    torch.cuda.empty_cache()
+    _, g_tp = loop.tensor_parallel_value_and_grad(cfg, run, mesh)(
+        state.params, batch)
+    step = loop.make_train_step(cfg, run, opt, mesh=mesh)
+    losses, walls, flash = [], [], []
+    for i in range(TP_STEPS):
+        for c in counters.values():
+            c.reset()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        if i == TP_STEPS - 1:
+            holder = {}
+            wall_p, busy, idle = _tp_idle(torch, lambda: holder.update(
+                zip(("state", "m"), step(state, corpus.batch_at(i)))))
+            new, m = holder.pop("state"), holder.pop("m")
+            walls.append(wall_p / 1e3)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, m = step(state, corpus.batch_at(i))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        flash.append(counters["flash_attention"].value)
+        if i == 0:
+            g_tp = list(_unshard_leaves(torch, g_tp))
+            norms = [math.sqrt(sum(float(x.double().square().sum())
+                                   for x in gs)) for gs in (g_one, g_tp)]
+            clip = [min(1.0, 1.0 / (n + 1e-12)) for n in norms]
+            lr = float(optim.warmup_cosine_schedule(
+                TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)(1))
+            worst_p, at = 0.0, None
+            for path, p, gj, gt, a, b in zip(
+                    _tree_paths(state.params),
+                    _unshard_leaves(torch, state.params), g_one, g_tp,
+                    new_one, _unshard_leaves(torch, new.params)):
+                ratio, terms = _first_step_excess(
+                    torch, p, gj * clip[0], gt * clip[1], a, b, lr)
+                if at is None or ratio > worst_p:
+                    worst_p, at = ratio, (path, terms)
+            del g_one, g_tp, new_one, p, gj, gt, a, b
+        state = new
+        del new
+    peak_tp = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"tp (b) {cfg.arch} trained tp {TP_N} over {TP_N} x {dev}, B 1 x S "
+          f"{TRAIN_SEQ}, bf16 compute, remat, ce_chunk {TRAIN_CE_CHUNK}: "
+          f"losses {' '.join(f'{x:.4f}' for x in losses)} (one device's "
+          f"step 0 {float(m_one['loss']):.4f}); step walls s "
+          f"{' '.join(f'{x:.4f}' for x in walls)} (the last profiled: "
+          f"device busy {busy:.1f} ms, idle share {idle:.4f}); peak memory "
+          f"of steps 1-{TP_STEPS - 1} {peak_tp:.2f} GiB against the "
+          f"one-device step's {peak_one:.2f} GiB ({base / 2 ** 30:.2f} GiB "
+          f"of state before it); new params at {worst_p:.4f} of Adam's "
+          f"first-step bound of the one-device step's (gate 1; set in "
+          f"{at[0]} by {at[1]}); flash_attention launched {flash} (gate "
+          f"{2 * cfg.n_layers * TP_N} a step)", flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise CheckFailed(f"tp (b): losses {losses} do not fall")
+    if not worst_p <= 1.0:
+        raise CheckFailed(f"tp (b): a new param is {worst_p:.3f}x Adam's "
+                          f"first-step bound from the one-device step's")
+    if any(n != 2 * cfg.n_layers * TP_N for n in flash):
+        raise CheckFailed(f"tp (b): flash_attention launched {flash}")
+    del state
+    torch.cuda.empty_cache()
+    return flash[0]
+
+
+def _worst_leaf(got, want, paths) -> tuple:
+    """The largest |got - want| over ``want``'s largest |value|, leaf by
+    leaf, and the path of the leaf that sets it."""
+    worst, at = 0.0, None
+    for g, w, path in zip(got, want, paths):
+        r = (g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        if at is None or r > worst:
+            worst, at = r, path
+    return worst, at
+
+
+def _tree_paths(tree) -> list:
+    """The "/"-joined key paths of a tree's leaves (tensors or ``Sharded``),
+    in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [f"{k}/{q}" if q else k for k in sorted(tree)
+                for q in _tree_paths(tree[k])]
+    return [""]
+
+
+def tp_data_and_model(torch, dev, counters, cfg) -> None:
+    """(c) B TP_DP x S TP_DP_SEQ over a (TP_DP, 2) mesh of the card
+    repeated, fp32, ce_chunk: the GSPMD+TP gradient (each data shard's
+    rows through its row's TP forward, the mean over the data shards)
+    against one device's (gates of (a): the loss within 1e-5 relative,
+    every leaf within 1e-5 of its largest; the logged all-reduces, counts
+    and bytes, = their reckoning), then one step of it (finite loss; wall,
+    busy, idle share, peak printed)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.parallel import collectives, sharding
+    from repro_torch.train import loop, optim
+
+    run = RunConfig(tp=TP_N, ce_chunk=TRAIN_CE_CHUNK)
+    corpus = SyntheticCorpus(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TP_DP_SEQ, global_batch=TP_DP, seed=0))
+    batch = corpus.batch_at(0)
+    params = registry.init_params(cfg, run,
+                                  torch.Generator(dev).manual_seed(0), dev)
+    l_one, g = loop.value_and_grad(cfg, run)(params, batch)
+    g_one = optim.tree_leaves(g)
+    del g
+    param_bytes = sum(x.numel() * x.element_size()
+                      for x in optim.tree_leaves(params))
+    # each row's loss, whose chunked CE logs its all-reduces twice (the
+    # backward runs each chunk again, under torch.utils.checkpoint), then
+    # the mean over the data shards: one all-reduce a model shard, of every
+    # slice once (the params' bytes) and the loss
+    row = _tp_reckoning(cfg, 1, TP_DP_SEQ, TP_N, False,
+                        loss_chunk=TRAIN_CE_CHUNK)
+    chunks = TP_DP_SEQ // TRAIN_CE_CHUNK
+    want = {"counts": TP_DP * (row["counts"]["all-reduce"] + 2 * chunks)
+            + TP_N,
+            "bytes": TP_DP * (row["bytes"]["all-reduce"]
+                              + chunks * 3 * TRAIN_CE_CHUNK * 4)
+            + param_bytes + 4}
+    mesh = make_mesh((TP_DP, TP_N), ("data", "model"), [dev] * (TP_DP * TP_N))
+    sharded = sharding.shard_params(params, mesh, TP_N)
+    del params
+    torch.cuda.empty_cache()
+    for c in counters.values():
+        c.reset()
+    collectives.LOG.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l_tp, g = loop.tensor_parallel_value_and_grad(cfg, run, mesh)(sharded,
+                                                                  batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_flash = counters["flash_attention"].value
+    logged = collectives.LOG.summary()
+    del sharded
+    g_tp = list(_unshard_leaves(torch, g))
+    del g
+    torch.cuda.empty_cache()
+    worst = _grads_per_leaf_close("tp (c) the (2, 2) gradient against one "
+                                  "device's", g_tp, g_one)
+    rel = abs(l_tp.item() - l_one.item()) / abs(l_one.item())
+    del g_tp, g_one
+    opt = optim.adamw(optim.warmup_cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                                   TRAIN_STEPS),
+                      weight_decay=0.01, max_grad_norm=1.0)
+    state = loop.shard_train_state(loop.init_train_state(
+        torch.Generator(dev).manual_seed(0), cfg, run, opt, dev), mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = loop.make_train_step(cfg, run, opt, mesh=mesh)
+    holder = {}
+    s_wall, busy, idle = _tp_idle(torch, lambda: holder.update(
+        zip(("state", "m"), step(state, batch))))
+    loss = float(holder["m"]["loss"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del holder, state
+    torch.cuda.empty_cache()
+    print(f"tp (c) {cfg.arch} over a ({TP_DP}, {TP_N}) mesh of {dev} "
+          f"repeated, B {TP_DP} x S {TP_DP_SEQ}, fp32: gradient wall "
+          f"{wall:.3f} s, loss {l_tp.item():.6f} (one device "
+          f"{l_one.item():.6f}, {rel:.3e} relative, gate 1e-5), gradients "
+          f"within {worst:.3e} of each leaf's largest (gate 1e-5), "
+          f"flash_attention launched {n_flash} (gate "
+          f"{TP_DP * TP_N * cfg.n_layers}), logged {json.dumps(logged)} "
+          f"(all-reduces reckoned {json.dumps(want)}); one "
+          f"step: loss {loss:.6f}, wall {s_wall:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle share {idle:.4f}, peak memory {peak:.2f} GiB",
+          flush=True)
+    if not rel <= 1e-5 or not math.isfinite(loss):
+        raise CheckFailed(f"tp (c): loss {l_tp.item()} (step {loss}) against "
+                          f"one device's {l_one.item()}")
+    if n_flash != TP_DP * TP_N * cfg.n_layers:
+        raise CheckFailed(f"tp (c): flash_attention launched {n_flash}")
+    if (set(logged["counts"]) != {"all-reduce"}
+            or logged["counts"]["all-reduce"] != want["counts"]
+            or logged["bytes"]["all-reduce"] != want["bytes"]):
+        raise CheckFailed(f"tp (c): logged {logged}, reckoned all-reduces "
+                          f"{want}")
+
+
+def tp_granite(torch, dev, counters) -> int:
+    """(d) granite-moe-3b-a800m at full width and depth, seeded params at
+    ``RunConfig(tp=2)`` cast to bf16, EP over (1, 2) of the card repeated
+    (20 experts a shard, vocab padded to 49 664), the bf16 forward of
+    B 1 x S TRAIN_SEQ.  Gates: flash launched once per layer and shard;
+    each shard's 20 experts; the last TAIL positions' logits within the
+    phase-8 bf16 gate, 1.5 x the one-device bf16 forward's distance from
+    the fp32-compute forward + 1e-3 x its max |logit|, or, where the TP
+    run routes some token otherwise than the one-device run, the same gate
+    at the first layer's attention output (flash_attention on the shards'
+    heads, upstream of any routing).  The expert parallelism itself is
+    held in fp32 whatever the bf16 routing does: each layer's EP MoE on
+    the input the one-device fp32-compute forward gave that layer routes
+    every token as the one-device MoE does (no flip), and its output is
+    within 1e-5 of the largest |output| of the one-device MoE's.  Printed:
+    the routing flips, the dropped share, wall, busy, idle share.  Returns
+    the flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import common, moe, registry, transformer
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel import tensor as tp
+    from repro_torch.train import loop
+
+    cfg = get_config("granite-moe-3b-a800m")
+    run32 = RunConfig(tp=TP_N)
+    run16 = RunConfig(tp=TP_N, compute_dtype="bfloat16")
+    gen = torch.Generator(dev).manual_seed(0)
+    params = transformer.cast_params(
+        registry.init_params(cfg, run32, gen, dev), "bfloat16")
+    torch.cuda.empty_cache()
+    tokens = torch.randint(0, cfg.vocab, (1, TRAIN_SEQ), generator=gen,
+                           device=dev)
+    mesh = make_mesh((1, TP_N), ("data", "model"), [dev] * TP_N)
+    shards = loop.model_shards(sharding.shard_params(params, mesh, TP_N),
+                               mesh)
+    held = [tuple(p["layers"]["moe"]["w_gate"].shape) for p in shards.pieces]
+    vocab_pieces = [tuple(p["embed"]["w"].shape) for p in shards.pieces]
+    # the padding columns (-1e30 in either dtype) are left out
+    real = (slice(None), slice(-TAIL, None), slice(0, cfg.vocab))
+    with torch.no_grad():
+        with MoeRecorder(inputs=True) as ref_rec:
+            ref = transformer.forward(params, cfg, run32, tokens)[real] \
+                .float()
+        with MoeRecorder() as one_rec:
+            one = transformer.forward(params, cfg, run16, tokens)[real] \
+                .float()
+        transformer.forward(shards, cfg, run16, tokens[:, :256])  # warm-up
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with MoeRecorder() as rec:
+            logits = transformer.forward(shards, cfg, run16, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_flash = counters["flash_attention"].value
+        shape = tuple(logits.shape)
+        got = logits[real].float()
+        del logits
+        p_wall, busy, idle = _tp_idle(
+            torch, lambda: transformer.forward(shards, cfg, run16, tokens))
+    # each shard routes every token: the first shard's routes a layer
+    flips = routing_flips(torch, rec.routes[::TP_N], one_rec.routes)
+    e_tp = (got - ref).abs().max().item()
+    e_one = (one - ref).abs().max().item()
+    limit = 1.5 * e_one + 1e-3 * ref.abs().max().item()
+    print(f"tp (d) {cfg.arch} EP forward, bf16 params and compute, tp "
+          f"{TP_N} over {TP_N} x {dev}: expert weights a shard {held[0]}, "
+          f"embed a shard {vocab_pieces[0]}; logits {shape}; wall "
+          f"{wall:.4f} s; profiled repeat wall {p_wall:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle share {idle:.4f}; flash_attention launched "
+          f"{n_flash} (gate {cfg.n_layers * TP_N}); last {TAIL} logits "
+          f"(the {cfg.vocab} real columns): TP "
+          f"{e_tp:.6f} from the fp32-compute forward, one device's bf16 "
+          f"{e_one:.6f} (gate {limit:.6f}); routing flips against the "
+          f"one-device bf16 run {flips} of {TRAIN_SEQ * cfg.n_layers} "
+          f"(token, layer) pairs; dropped share {rec.dropped_share():.6f} "
+          f"(one device {one_rec.dropped_share():.6f})", flush=True)
+    if n_flash != cfg.n_layers * TP_N:
+        raise CheckFailed(f"tp (d): flash_attention launched {n_flash}")
+    if (held[0][1] != cfg.n_experts // TP_N
+            or shape[-1] != cfg.padded_vocab(TP_N)):
+        raise CheckFailed(f"tp (d): expert pieces {held}, logits {shape}")
+    if not e_tp <= limit:
+        if flips == 0:
+            raise CheckFailed(f"tp (d): logits {e_tp} from fp32, more than "
+                              f"{limit}, with the one-device routing")
+        pos = torch.arange(TRAIN_SEQ, device=dev)[None]
+
+        def attn0(p, run):
+            lp = common.layer(p["layers"], 0)
+            x = tp.whole(common.embed(p["embed"], tokens).to(
+                common.compute_dtype(run)))
+            h = common.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+            return tp.gather(attn_mod.full_attention(
+                lp["attn"], tp.whole(h), positions=pos,
+                theta=cfg.rope_theta)).float()
+
+        with torch.no_grad():
+            a_ref = attn0(params, run32)
+            e_tp = (attn0(shards, run16) - a_ref).abs().max().item()
+            e_one = (attn0(params, run16) - a_ref).abs().max().item()
+        limit = 1.5 * e_one + 1e-3 * a_ref.abs().max().item()
+        print(f"tp (d) {cfg.arch} at the first layer's attention output (no "
+              f"routing upstream): TP {e_tp:.6f} from fp32, one device's "
+              f"bf16 {e_one:.6f} (gate {limit:.6f})", flush=True)
+        if not e_tp <= limit:
+            raise CheckFailed(f"tp (d): attention {e_tp} from fp32, more "
+                              f"than {limit}")
+    del one, got
+    # EP in fp32, each layer's MoE on the one-device run's input to it
+    kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+              dispatch_groups=run32.moe_dispatch_groups)
+    worst, ep_flips = 0.0, 0
+    t0 = time.perf_counter()
+    with torch.no_grad(), sharding.activation_sharding(
+            sharding.activation_rules(False, sp=False)):
+        for i, (p_one, x) in enumerate(ref_rec.inputs):
+            with MoeRecorder() as r_one:
+                want = moe.moe_apply(p_one, x, **kw).float()
+            with MoeRecorder() as r_tp:
+                got = tp.gather(moe.moe_apply(
+                    common.layer(shards["layers"], i)["moe"], x, **kw)).float()
+            ep_flips += routing_flips(torch, r_tp.routes[::TP_N],
+                                      r_one.routes)
+            worst = max(worst, (got - want).abs().max().item()
+                        / want.abs().max().item())
+    ep_wall = time.perf_counter() - t0
+    print(f"tp (d) {cfg.arch} EP in fp32 compute, each of the "
+          f"{len(ref_rec.inputs)} layers' MoE on the one-device fp32 "
+          f"forward's input to it: routing flips against the one-device MoE "
+          f"{ep_flips} (gate 0), outputs within {worst:.3e} of the largest "
+          f"|output| (gate 1e-5); wall {ep_wall:.2f} s", flush=True)
+    if len(ref_rec.inputs) != cfg.n_layers or ep_flips or not worst <= 1e-5:
+        raise CheckFailed(f"tp (d): EP in fp32 over "
+                          f"{len(ref_rec.inputs)} layers, flips {ep_flips}, "
+                          f"outputs within {worst} of the largest")
+    del params, shards, ref, ref_rec
+    torch.cuda.empty_cache()
+    return n_flash
+
+
+def tp_launcher() -> None:
+    """(e) ``python -m repro_torch.launch.train --arch qwen2-1.5b --reduced
+    --tp 2 --device cuda:0,cuda:0 --steps 4`` (gates: exit 0, its done
+    line, flash launched layers x shards a step) and, at once, ``--tp 2``
+    with mamba2-370m (gate: exit 2 naming ROADMAP.md)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import reduced_config
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    layers = reduced_config(get_config("qwen2-1.5b")).n_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        refused = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "mamba2-370m", "--tp", "2", "--device", "cuda:0,cuda:0",
+             "--steps", "1", "--ckpt", os.path.join(tmp, "m")],
+            env=env, cwd=tmp, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        try:
+            got, = _train_cli_group(
+                [("tp", ["--arch", "qwen2-1.5b", "--reduced", "--tp", "2",
+                         "--device", "cuda:0,cuda:0", "--steps", "4",
+                         "--ckpt", os.path.join(tmp, "q")],
+                  ("done: steps 0->4",))], env, tmp)
+            said = refused.communicate(timeout=300)[0]
+        finally:
+            if refused.poll() is None:
+                refused.kill()
+                refused.wait()
+        wall = time.perf_counter() - t0
+    print(f"tp (e) the launcher: --tp 2 over cuda:0,cuda:0 launched "
+          f"{json.dumps(got)} in 4 steps (gate flash_attention "
+          f"{4 * layers * TP_N}); --tp 2 with mamba2-370m exit "
+          f"{refused.returncode}: {said.strip().splitlines()[-1:]}; wall "
+          f"{wall:.1f} s for both (device busy not measured: subprocesses)",
+          flush=True)
+    if got["flash_attention"] != 4 * layers * TP_N:
+        raise CheckFailed(f"tp (e): flash_attention launched {got}")
+    if refused.returncode != 2 or "ROADMAP.md" not in said:
+        raise CheckFailed(f"tp (e): --tp 2 with mamba2-370m exited "
+                          f"{refused.returncode}: {said[-500:]}")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -3776,35 +4466,52 @@ def main() -> int:
     print(f"env: built {', '.join(build.KERNELS)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    phases = {}
+
+    def timed(name, fn, *args):
+        # each phase's wall, printed as it ends and once more at the end
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phases[name] = round(time.perf_counter() - t0, 1)
+        print(f"phase {name}: {phases[name]} s", flush=True)
+        return out
+
     try:
-        rows = check_kernels(torch, dev)
-        check_gradients(torch, dev)
+        rows = timed("kernels", check_kernels, torch, dev)
+        timed("gradients", check_gradients, torch, dev)
         counters = {"quantize": qz.launches, "block_attention": ba.launches,
                     "gae_project": gp.launches, "flash_attention": fa.launches,
                     "ssd_scan": sd.launches}
-        cfg, hb = make_field()
-        comp = run_fit(torch, dev, counters, cfg, hb)
-        launches = run_main_path(torch, dev, counters,
-                                 ("quantize", "block_attention", "gae_project"),
-                                 comp, hb)
+        cfg, hb = timed("field", make_field)
+        comp = timed("fit", run_fit, torch, dev, counters, cfg, hb)
+        launches = timed("main path", run_main_path, torch, dev, counters,
+                         ("quantize", "block_attention", "gae_project"),
+                         comp, hb)
         launches = {(name, "float32"): launches[name] for name in
                     ("quantize", "block_attention", "gae_project")}
-        batch_blob, stream_recon = run_stream_path(torch, counters, comp, hb)
-        run_mesh_path(torch, counters, comp, hb, card, batch_blob,
-                      stream_recon)
+        batch_blob, stream_recon = timed("stream", run_stream_path, torch,
+                                         counters, comp, hb)
+        timed("mesh", run_mesh_path, torch, counters, comp, hb, card,
+              batch_blob, stream_recon)
         del batch_blob, stream_recon
         del comp, hb
-        run_clis()
-        launches.update(run_lm_path(torch, dev, counters))
-        launches.update(run_whisper_path(torch, dev, counters))
-        launches.update(run_train_path(torch, dev, counters, rows))
-        launches.update(run_dryrun_configs(torch, dev, counters))
-        run_parallel_path(torch, dev, counters)
+        timed("clis", run_clis)
+        launches.update(timed("lm", run_lm_path, torch, dev, counters))
+        launches.update(timed("whisper", run_whisper_path, torch, dev,
+                              counters))
+        launches.update(timed("train", run_train_path, torch, dev, counters,
+                              rows))
+        launches.update(timed("dryrun", run_dryrun_configs, torch, dev,
+                              counters))
+        timed("parallel", run_parallel_path, torch, dev, counters)
+        launches.update(timed("tp", run_tensor_parallel_path, torch, dev,
+                              counters))
     except (CheckFailed, AssertionError) as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     for key, n in launches.items():
         rows[key]["launches"] = n
+    print(f"phases s: {json.dumps(phases)}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ carry across unchanged.  The per-arch files in this package hold the EXACT
 assigned configurations; physical padding for tensor parallelism (vocab to a
 multiple of 256*TP, Q-heads to a multiple of TP, KV-head replication up to
 TP) is derived here and is an implementation artifact, not a config change.
-The port runs on one device, so ``tp`` is 1 and nothing is padded.
+``tp`` is the size of the mesh's ``"model"`` axis (``train.loop``), and the
+params are padded for it even on one device, where the padded model is the
+reference the tensor-parallel run is held to.
 """
 from __future__ import annotations
 
@@ -99,7 +101,8 @@ class RunConfig:
     #                                  the (B,S,V) logits tensor never fully
     #                                  materializes (§Perf hillclimb lever)
     sp: bool = False                 # sequence-parallel activation sharding
-    #                                  (reduce-scatter/all-gather TP boundary)
+    #                                  (reduce-scatter/all-gather TP boundary;
+    #                                  sharding.activation_rules)
     moe_dispatch_groups: int = 0     # >1: per-group (shard-local) MoE dispatch
     #                                  instead of one global token sort
     cast_params_early: bool = False  # cast fp32 masters to compute dtype at
@@ -110,7 +113,7 @@ class RunConfig:
     grad_comp_tau: float = 0.0
 
     def __post_init__(self):
-        """The port reads ``tp``, ``param_dtype`` ("float32" or
+        """The port reads ``tp``, ``sp``, ``param_dtype`` ("float32" or
         "bfloat16"), ``compute_dtype``, ``remat``, ``ce_chunk``,
         ``moe_dispatch_groups``, ``cast_params_early``,
         ``gradient_compression``, ``grad_comp_rank`` and ``grad_comp_tau``,
@@ -130,7 +133,7 @@ class RunConfig:
                 f"honours only the default {f.default!r} (ROADMAP.md)")
 
 
-_HONOURED = ("tp", "param_dtype", "compute_dtype", "remat",
+_HONOURED = ("tp", "sp", "param_dtype", "compute_dtype", "remat",
              "use_flash_kernel", "scan_layers", "ce_chunk",
              "moe_dispatch_groups", "cast_params_early",
              "gradient_compression", "grad_comp_rank", "grad_comp_tau")

@@ -148,15 +148,35 @@ def bound_axis(mesh: Optional[Mesh], axis_name: str) -> list:
     return mesh.axis_devices(axis_name)
 
 
-def data_devices(mesh: Mesh) -> list:
-    """The devices of the data-parallel shards, over ``("pod", "data")``
-    in that order (the batch's split, ``sharding.batch_spec``); the mesh's
-    other axes must have one device (tensor parallelism is not ported)."""
+def shard_grid(mesh: Mesh) -> np.ndarray:
+    """The mesh's coordinates as a (data shards, model shards) grid: row
+    *r* is the *r*-th data shard over ``("pod", "data")`` in that order
+    (the batch's split, ``sharding.batch_spec``), column *s* its *s*-th
+    ``"model"`` shard; each entry is a coordinate of ``mesh.devices``.
+    The mesh's other axes must have one device."""
     other = {a: n for a, n in mesh.shape.items()
-             if a not in ("pod", "data") and n != 1}
+             if a not in ("pod", "data", "model") and n != 1}
     if other:
         raise NotImplementedError(
-            f"mesh axes {other}: data-parallel steps take a mesh whose only "
-            f"axes of more than one device are 'pod' and 'data' (tensor "
-            f"parallelism waits for its slice, ROADMAP.md)")
-    return list(mesh.devices.flat)
+            f"mesh axes {other}: LM steps take a mesh whose only axes of "
+            f"more than one device are 'pod', 'data' and 'model'")
+    names = mesh.axis_names
+    order = ([names.index(a) for a in ("pod", "data", "model")
+              if a in names]
+             + [i for i, a in enumerate(names)
+                if a not in ("pod", "data", "model")])
+    coords = np.empty(mesh.devices.shape, dtype=object)
+    for c in np.ndindex(mesh.devices.shape):
+        coords[c] = c
+    return coords.transpose(order).reshape(dp_size(mesh), tp_size(mesh))
+
+
+def data_devices(mesh: Mesh) -> list:
+    """The devices of the data-parallel shards: each row of
+    ``shard_grid``'s first device (with one model shard, its only one)."""
+    return [mesh.devices[c] for c in shard_grid(mesh)[:, 0]]
+
+
+def model_devices(mesh: Mesh, row: int = 0) -> list:
+    """The devices of data shard ``row``'s model shards, in model order."""
+    return [mesh.devices[c] for c in shard_grid(mesh)[row]]

@@ -6,21 +6,27 @@ train step -> checkpoint/restart -> failure-resilient loop.
   python -m repro_torch.launch.train --arch mamba2-370m --batch 1 --seq 4096 \\
       --steps 4 --grad-compression pca_ef --ckpt /tmp/ck --resume
 
+  python -m repro_torch.launch.train --arch qwen2-1.5b --reduced --tp 2 \
+      --device cuda:0,cuda:0 --steps 4
+
 The flags and printed lines are the JAX package's (``resumed at step N``,
 ``[event] {...}``, ``done: steps a->b  loss=...  ... tok/s  restores=...``),
 plus ``--device``.  As the JAX launcher, it builds the host mesh
 ``make_host_mesh(model=--tp)`` over the visible cards, or over ``--device``
 (one device, or a comma-separated list where a device may repeat:
-``--device cuda:0,cuda:0`` runs two data shards on one card), and steps in
-the data-parallel GSPMD mode (``train.loop``); ``--batch`` must split over
+``--device cuda:0,cuda:0`` runs two shards on one card), and steps in the
+GSPMD mode (``train.loop``): data-parallel over the mesh's rows and, with
+``--tp`` above 1, tensor-parallel over each row's model shards (the dense
+and moe families; params padded for ``--tp``); ``--batch`` must split over
 the data shards (exit 2).  On one device the step is the one-device step.
-The moe family trains on one device: over more data shards it exits 2.
-SIGTERM and SIGINT checkpoint at the next step boundary and stop.  ``--tp``
-above 1 (tensor parallelism) waits for its slice and is refused at parse
-time (exit 2), as are the vlm and audio families: their batches need a
-frontend (``vision_embeds``, ``frames``) that the token pipeline does not
-make.  ``--resume`` reads a step directory written by this driver or by the
-JAX package's (``runtime.checkpoint``).
+The moe family trains over one data shard: over more it exits 2.  SIGTERM
+and SIGINT checkpoint at the next step boundary and stop.  Exit 2 at parse
+time also for ``--tp`` above 1 with the ssm or hybrid family or with
+``--grad-compression pca_ef|gae``, and for the vlm and audio families:
+their batches need a frontend (``vision_embeds``, ``frames``) that the token
+pipeline does not make.  ``--resume`` reads a step directory written by
+this launcher (with any ``--tp``: the arrays are whole) or by the JAX
+package's (``runtime.checkpoint``), and shards it over the mesh.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import RunConfig
+from repro_torch.core.errors import ConfigError
 from repro_torch.core.exec import resolve_device
 from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
 from repro_torch.launch.mesh import dp_size, make_host_mesh
@@ -43,7 +50,8 @@ from repro_torch.models.registry import reduced_config
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.failures import ResilientRunner
 from repro_torch.train import optim
-from repro_torch.train.loop import init_train_state, make_train_step
+from repro_torch.train.loop import (check_tensor_parallel, init_train_state,
+                                    make_train_step, shard_train_state)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -68,9 +76,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="torch device, or a comma-separated list of the "
                          "data shards' devices (default: every card)")
     args = ap.parse_args(argv)
-    if args.tp != 1:
-        ap.error(f"--tp {args.tp}: tensor parallelism is not ported; it "
-                 f"waits for its slice of the port (ROADMAP.md §1)")
 
     cfg = get_config(args.arch)
     if cfg.family in FRONTENDS:
@@ -78,15 +83,22 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                  f"need {FRONTENDS[cfg.family]} (its frontend), which the "
                  f"token pipeline does not make; train it through "
                  f"train.loop.make_train_step with them in the batch")
+    run = RunConfig(tp=args.tp, gradient_compression=args.grad_compression)
+    try:
+        check_tensor_parallel(cfg, run)
+    except NotImplementedError as e:
+        ap.error(f"--tp {args.tp}: {e}")
     if args.reduced:
         cfg = reduced_config(cfg)
-    run = RunConfig(tp=args.tp, gradient_compression=args.grad_compression)
     if args.device is None:
         resolve_device()                    # no card: the error says so
         devices = None                      # every visible card
     else:
         devices = args.device.split(",")
-    mesh = make_host_mesh(model=args.tp, devices=devices)
+    try:
+        mesh = make_host_mesh(model=args.tp, devices=devices)
+    except ConfigError as e:
+        ap.error(str(e))
     dp = dp_size(mesh)
     if args.batch % dp:
         ap.error(f"--batch {args.batch} does not split over the {dp} data "
@@ -94,13 +106,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if dp > 1 and cfg.family == "moe":
         ap.error(f"--arch {args.arch}: the moe family trains over one data "
                  f"shard (its routing is over the batch; ROADMAP.md §3, "
-                 f"divergence 10); {dp} shards given: pass one --device")
+                 f"divergence 10); {dp} data shards given: pass --device "
+                 f"as one data shard's --tp devices")
     device = mesh.devices.flat[0]
 
     opt = optim.adamw(optim.warmup_cosine_schedule(args.lr, 20, args.steps),
                       weight_decay=0.01, max_grad_norm=1.0)
     state = init_train_state(torch.Generator(device).manual_seed(args.seed),
                              cfg, run, opt, device)
+    if args.tp > 1:
+        state = shard_train_state(state, mesh)
     step_fn = make_train_step(cfg, run, opt, microbatches=args.microbatches,
                               mesh=mesh)
     corpus = SyntheticCorpus(TokenPipelineConfig(
@@ -113,6 +128,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     start = 0
     if args.resume and ckpt.latest_step() is not None:
         start, state = ckpt.restore()
+        if args.tp > 1:
+            state = shard_train_state(state, mesh)
         print(f"resumed at step {start}")
 
     runner = ResilientRunner(

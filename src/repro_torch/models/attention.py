@@ -4,8 +4,11 @@ PyTorch.
 Supports grouped-query / multi-query heads, RoPE, QKV bias (qwen1.5/qwen2),
 qk-norm (qwen3), a ring-buffer KV cache for sliding-window decode, and
 cross-attention (llama-3.2-vision): K/V from another sequence, unrotated,
-every key visible.  There is one device, so the JAX package's sharding
-constraints are dropped.
+every key visible.  Under tensor parallelism ``full_attention`` runs on each
+``"model"`` shard's heads (``shardwise``): shard *s* holds query heads
+``[s H/N, (s+1) H/N)`` and KV heads ``[s KV/N, (s+1) KV/N)`` (the JAX
+package groups query heads contiguously per KV head), launches the flash
+kernel on them, and gives its part of the output projection, a partial sum.
 
 Every prefill path goes through the flash-attention wrapper, cross-attention
 too (non-causal, T != S): the JAX package sends cross-attention to its
@@ -25,6 +28,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.common import apply_rope, lecun_init, rmsnorm, rmsnorm_init
+from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.tensor import PARTIAL, shardwise
 
 Tensor = torch.Tensor
 
@@ -68,6 +73,7 @@ def _project_qkv(params: dict, x: Tensor, x_kv: Tensor, positions: Tensor,
     return q, k, v
 
 
+@shardwise(PARTIAL)
 def full_attention(params: dict, x: Tensor, *, positions: Tensor,
                    theta: float = 1e4, causal: bool = True, window: int = 0,
                    rope: bool = True, x_kv: Optional[Tensor] = None) -> Tensor:
@@ -132,12 +138,16 @@ def decode_attention(params: dict, x: Tensor, cache: KVCache, *,
     index = torch.full((1,), slot, dtype=torch.long, device=x.device)
     cache.k.index_copy_(1, index, k_new.to(cache.k.dtype))
     cache.v.index_copy_(1, index, v_new.to(cache.v.dtype))
-    t = torch.arange(cache.k.shape[1], device=x.device)
+    # pins the updated cache's sharding in the JAX package; on one device a
+    # no-op
+    k = constrain(cache.k, "kv_cache")
+    v = constrain(cache.v, "kv_cache")
+    t = torch.arange(k.shape[1], device=x.device)
     live = min(pos + 1, cache.window) if cache.window else pos + 1
     mask = (t < live)[None, None, None, None, :]
-    ctx = fa_ops.grouped_attention(q, cache.k, cache.v, mask)
+    ctx = fa_ops.grouped_attention(q, k, v, mask)
     out = torch.einsum("bshk,hkd->bsd", ctx, params["wo"].to(dt))
-    return out, KVCache(k=cache.k, v=cache.v, pos=pos + 1, window=cache.window)
+    return out, KVCache(k=k, v=v, pos=pos + 1, window=cache.window)
 
 
 def prefill_cache(params: dict, x: Tensor, *, positions: Tensor, theta: float,

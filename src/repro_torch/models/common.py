@@ -10,6 +10,11 @@ Conventions, as in the JAX package's ``models/common.py``:
 
 Initializers draw from an explicit ``torch.Generator`` on its own device and
 move the result to ``device``; they do not reproduce ``jax.random``.
+
+Under tensor parallelism the params of each ``"model"`` shard come as a
+``parallel.tensor.Shards``: the norms and the MLP run on each shard's piece
+(``shardwise``), the embedding, the LM head and the cross-entropy are
+vocab-parallel, and the layer stack walks every shard's stack at once.
 """
 from __future__ import annotations
 
@@ -17,6 +22,10 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import sharding
+from repro_torch.parallel import tensor as tp
+from repro_torch.parallel.tensor import Shards, shardwise
 
 Tensor = torch.Tensor
 
@@ -48,6 +57,7 @@ def rmsnorm_init(d: int, device, lead=()) -> dict:
     return {"scale": torch.ones(*lead, d, device=device)}
 
 
+@shardwise()
 def rmsnorm(params: dict, x: Tensor, eps: float = 1e-6) -> Tensor:
     x32 = x.to(torch.float32)
     y = x32 * torch.rsqrt(torch.mean(torch.square(x32), dim=-1, keepdim=True)
@@ -111,6 +121,10 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int, device) -> dict:
 
 
 def embed(params: dict, tokens: Tensor) -> Tensor:
+    """The rows of ``tokens``; from vocab-split params a partial sum
+    (``tensor.embed``)."""
+    if isinstance(params, Shards):
+        return tp.embed(params, tokens)
     return params["w"][tokens]
 
 
@@ -130,6 +144,7 @@ def swiglu_init(gen: torch.Generator, d: int, f: int, device, lead=()) -> dict:
             "w_out": lecun_init(gen, (*lead, f, d), device, fan_in=f)}
 
 
+@shardwise(tp.PARTIAL)
 def swiglu(params: dict, x: Tensor) -> Tensor:
     dt = x.dtype
     gate = F.silu(x @ params["w_gate"].to(dt))
@@ -155,9 +170,12 @@ def gelu_mlp(params: dict, x: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def layer(tree, i: int):
-    """Slice ``i`` of the leading (stacked-layer) axis of every leaf."""
+    """Slice ``i`` of the leading (stacked-layer) axis of every leaf (of
+    every shard's tree, for a ``Shards``)."""
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, Shards):
+        return Shards([layer(t, i) for t in tree.pieces], None, tree.devices)
     return tree[i]
 
 
@@ -183,12 +201,21 @@ def remat(body: Callable, run) -> Callable:
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return body(*args)
-        return checkpoint(body, *args, use_reentrant=False)
+        # the recompute runs in the backward, after the forward's
+        # activation rules (tensor parallelism's boundaries) are gone
+        rules = sharding.active_rules()
+
+        def again(*a):
+            with sharding.activation_sharding(rules):
+                return body(*a)
+        return checkpoint(again, *args, use_reentrant=False)
     return wrapped
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
+    if isinstance(tree, Shards):
+        yield from _leaves(tree.pieces[0])
+    elif isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
     else:
@@ -202,7 +229,10 @@ def _leaves(tree):
 def _nll(logits32: Tensor, labels: Tensor, vocab: int) -> tuple[Tensor, Tensor]:
     """(summed NLL, count) over the positions whose label is a real id;
     labels outside [0, vocab) (padding ids) are masked, as in the JAX
-    package, and clamped only so that the gather stays in bounds."""
+    package, and clamped only so that the gather stays in bounds.
+    Vocab-split logits go through ``tensor.vocab_parallel_nll``."""
+    if isinstance(logits32, Shards):
+        return tp.vocab_parallel_nll(logits32, labels, vocab)
     logz = torch.logsumexp(logits32, dim=-1)
     idx = labels.long().clamp(0, logits32.shape[-1] - 1)
     gold = torch.gather(logits32, -1, idx[..., None])[..., 0]
@@ -236,18 +266,12 @@ def chunked_ce_loss(x: Tensor, unembed_w: Tensor, labels: Tensor, vocab: int,
     if s % chunk:
         raise ValueError(f"chunked_ce_loss: sequence {s} is not a multiple "
                          f"of the chunk {chunk}")
+    x = tp.whole(x)
     w = unembed_w.to(x.dtype)
-    vpad = w.shape[1]
-    col_mask = None
-    if logit_mask_from and logit_mask_from < vpad:
-        col_mask = torch.where(torch.arange(vpad, device=x.device)
-                               < logit_mask_from, 0.0, -1e30)
 
     def one(xi: Tensor, w: Tensor, li: Tensor):
-        logits = (xi @ w).to(torch.float32)                # (B, c, Vpad)
-        if col_mask is not None:
-            logits = logits + col_mask
-        return _nll(logits, li, vocab)
+        return _nll(tp.each(_chunk_logits, xi, w, logit_mask_from,
+                            layout=xi.ndim - 1, indexed=True), li, vocab)
 
     nll_total = count = 0
     for i in range(0, s, chunk):
@@ -256,6 +280,34 @@ def chunked_ce_loss(x: Tensor, unembed_w: Tensor, labels: Tensor, vocab: int,
         nll_total = nll_total + nll
         count = count + cnt
     return nll_total / torch.clamp(count, min=1)
+
+
+def _chunk_logits(s: int, xi: Tensor, w: Tensor, mask_from: int) -> Tensor:
+    """Shard ``s``'s float32 logits of a chunk, (B, c, V_shard), with the
+    padding columns (global index >= ``mask_from``, if set) at -1e30."""
+    logits = (xi @ w).to(torch.float32)                    # (B, c, Vpad)
+    v = w.shape[1]
+    if mask_from and mask_from < (s + 1) * v:
+        logits = logits + torch.where(
+            torch.arange(s * v, (s + 1) * v, device=xi.device)
+            < mask_from, 0.0, -1e30)
+    return logits
+
+
+def lm_head(x: Tensor, w: Tensor, vocab: int, padded: int) -> Tensor:
+    """``x @ w`` (``w``: (D, V_padded)) with the padding columns at -1e30;
+    from vocab-split ``w`` the vocab-split logits, each shard masking the
+    padding columns it holds."""
+    def head(s, xs, ws):
+        logits = xs @ ws.to(xs.dtype)
+        if padded != vocab:
+            v = ws.shape[-1]
+            mask = torch.where(torch.arange(s * v, (s + 1) * v,
+                                            device=xs.device) < vocab,
+                               0.0, -1e30)
+            logits = logits + mask.to(logits.dtype)
+        return logits
+    return tp.each(head, tp.whole(x), w, layout=x.ndim - 1, indexed=True)
 
 
 def train_loss(forward: Callable, params: dict, cfg, run, batch: dict,

@@ -11,8 +11,16 @@ tokens,
 and over-capacity pairs are dropped (the earlier (token, slot) pairs of an
 over-full expert are kept).  The experts run as batched matmuls over the
 buffer (``torch.bmm``): the JAX package computes them outside any Pallas
-kernel.  Expert weights are laid out (E, D, F).  There is one device, so the
-JAX package's sharding constraints are dropped.
+kernel.  Expert weights are laid out (E, D, F).
+
+Under tensor parallelism (``parallel.tensor``) the router is replicated and
+the experts are split over the ``"model"`` shards: by expert (expert
+parallelism, E / N each) or, where N does not divide E, by each expert's F
+(``param_partition_specs``' fallback).  Every shard routes the whole batch
+(``tokens_flat`` is replicated over the model axis), so the capacity, the
+order of the pairs and the drops are the same on every shard; each shard
+runs only its own experts' slots (or its slice of every expert), and the
+``tokens_flat`` constraint after the combine sums the shards' outputs.
 
 Parity with ``jax.lax.top_k`` and ``jnp.argsort``: the top k come from a
 stable descending sort of the gates, so among equal gates the lower expert
@@ -30,6 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import lecun_init, swiglu, swiglu_init
+from repro_torch.parallel import tensor as tp
+from repro_torch.parallel.sharding import constrain
 
 Tensor = torch.Tensor
 
@@ -76,11 +86,13 @@ def moe_apply(params: dict, x: Tensor, *, top_k: int,
         if t % dispatch_groups:
             raise ValueError(f"moe_apply: {t} tokens do not split into "
                              f"{dispatch_groups} dispatch groups")
-        xg = x.reshape(dispatch_groups, t // dispatch_groups, d)
-        yg = torch.stack([_dispatch_tokens(params, g, top_k=top_k,
-                                           capacity_factor=capacity_factor)
-                          for g in xg])
-        return yg.reshape(b, s, d)
+        xg = constrain(x.reshape(dispatch_groups, t // dispatch_groups, d),
+                       "tokens_grouped")
+        yg = tp.each(torch.stack, [
+            _dispatch_tokens(params, xg[i], top_k=top_k,
+                             capacity_factor=capacity_factor)
+            for i in range(dispatch_groups)])
+        return constrain(yg, "tokens_grouped").reshape(b, s, d)
     y = _dispatch_tokens(params, x.reshape(b * s, d), top_k=top_k,
                          capacity_factor=capacity_factor)
     return y.reshape(b, s, d)
@@ -112,7 +124,21 @@ def _plan(expert_idx: Tensor, e: int, c: int) -> tuple[Tensor, Tensor, Tensor]:
 
 def _dispatch_tokens(params: dict, xf: Tensor, *, top_k: int,
                      capacity_factor: float) -> Tensor:
-    """Sort-based dispatch over a flat (T, D) token table (module docstring)."""
+    """Sort-based dispatch over a flat (T, D) token table (module
+    docstring); from ``Shards`` each shard's experts, summed by the
+    ``tokens_flat`` constraint."""
+    xf = constrain(xf, "tokens_flat")
+    y = tp.each(_dispatch_shard, params, xf, top_k, capacity_factor,
+                layout=tp.PARTIAL, indexed=True)
+    return constrain(y, "tokens_flat")
+
+
+def _dispatch_shard(shard: int, params: dict, xf: Tensor, top_k: int,
+                    capacity_factor: float) -> Tensor:
+    """Shard ``shard``'s part of the dispatch: the routing of all the
+    tokens over all E experts, then the slots of the experts whose weights
+    it holds (all of them on one device or under F-splitting, where its
+    output is its F-slice's part) and its part of the shared expert."""
     t, d = xf.shape
     e = params["router"].shape[-1]
     dt = xf.dtype
@@ -122,16 +148,24 @@ def _dispatch_tokens(params: dict, xf: Tensor, *, top_k: int,
     c = _capacity(t, top_k, e, capacity_factor)
     order, keep, buf_slot = _plan(expert_idx, e, c)
     token_of = order // top_k                                     # source token
+    held = params["w_gate"].shape[-3]                # this shard's experts
+    if held < e:
+        # expert parallelism: the pairs of experts [lo, lo + held)
+        lo = shard * held * c
+        mine = (buf_slot >= lo) & (buf_slot < lo + held * c)
+        keep = keep & mine
+        buf_slot = torch.where(mine, buf_slot - lo, 0)
 
     # gather tokens into the (E*C, D) buffer; over-capacity slots go to the
     # spare row E*C, which is cut off
-    buffer = torch.zeros((e * c + 1, d), dtype=dt, device=xf.device)
-    buffer[torch.where(keep, buf_slot, e * c)] = xf[token_of]
-    hidden = buffer[:e * c].reshape(e, c, d)
+    buffer = torch.zeros((held * c + 1, d), dtype=dt, device=xf.device)
+    buffer[torch.where(keep, buf_slot, held * c)] = xf[token_of]
+    hidden = buffer[:held * c].reshape(held, c, d)
 
     gate = F.silu(torch.bmm(hidden, params["w_gate"].to(dt)))
     up = torch.bmm(hidden, params["w_in"].to(dt))
-    out_flat = torch.bmm(gate * up, params["w_out"].to(dt)).reshape(e * c, d)
+    out_flat = torch.bmm(gate * up, params["w_out"].to(dt)).reshape(held * c,
+                                                                    d)
 
     # scatter back with the combine weights
     w_of_slot = weights.reshape(-1)[order]                        # (T*k,)

@@ -48,6 +48,19 @@ def get_model(cfg: ModelConfig) -> ModelApi:
                     decode_step=m.decode_step)
 
 
+# the families whose params compute split over a "model" axis
+TENSOR_PARALLEL_FAMILIES = ("dense", "moe")
+
+
+def check_tensor_parallel(cfg: ModelConfig, tp: int) -> None:
+    """Raise ``NotImplementedError`` for a model axis of ``tp`` > 1 where
+    the family's tensor parallelism is not ported."""
+    if tp > 1 and cfg.family not in TENSOR_PARALLEL_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.arch}: tensor parallelism of the {cfg.family} family "
+            f"waits for its slice (ROADMAP.md §1)")
+
+
 def init_params(cfg: ModelConfig, run: RunConfig, generator: torch.Generator,
                 device=None) -> dict:
     """Seeded random params of ``cfg`` on ``device`` (the card by default),

@@ -10,9 +10,18 @@ layers (``groups/selfs``, two leading axes) and one cross-attention layer
 vision embeddings.  Decode caches are stacked along the same axes; the
 VLM's cross K/V are computed once, in ``init_decode_state``, and kept in
 ``DecodeState.vision_kv``.
+
+Tensor parallelism (the dense and moe families): ``forward`` and
+``train_loss`` take the params of each ``"model"`` shard as a
+``parallel.tensor.Shards`` (``sharding.shard_params``' pieces) and run the
+JAX package's model code on it, with ``constrain`` at the JAX package's
+call sites deciding each boundary's collective under
+``activation_rules(False, sp=run.sp)`` (or the rules a caller installed).
+The logits stay vocab-split into the loss; ``forward`` gathers them.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -24,18 +33,33 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (apply_stack, compute_dtype, embed,
                                        layer, lecun_init, randn, remat,
                                        rmsnorm, rmsnorm_init, swiglu,
-                                       swiglu_init, unembed)
+                                       swiglu_init)
+from repro_torch.models.registry import check_tensor_parallel
+from repro_torch.parallel import sharding
+from repro_torch.parallel import tensor as tp
+from repro_torch.parallel.sharding import constrain
 
 Tensor = torch.Tensor
 
 FAMILIES = ("dense", "moe", "vlm")
 
 
-def _check_family(cfg: ModelConfig) -> None:
+def _check_decode(cfg: ModelConfig, params) -> None:
+    _check_family(cfg)
+    if isinstance(params, tp.Shards):
+        raise NotImplementedError(f"{cfg.arch}: decoding from params split "
+                                  f"over a model axis needs sharded decode "
+                                  f"state, which waits for its slice "
+                                  f"(ROADMAP.md §1)")
+
+
+def _check_family(cfg: ModelConfig, params=None) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"{cfg.arch}: the {cfg.family} family is "
                                   f"not a transformer family of the port "
                                   f"(ROADMAP.md)")
+    if isinstance(params, tp.Shards):
+        check_tensor_parallel(cfg, len(params.pieces))
 
 
 # ---------------------------------------------------------------------------
@@ -80,10 +104,11 @@ def _apply_ffn(p: dict, cfg: ModelConfig, run: RunConfig, h: Tensor) -> Tensor:
 def _self_layer(p: dict, cfg: ModelConfig, run: RunConfig, x: Tensor,
                 positions: Tensor) -> Tensor:
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attn_mod.full_attention(p["attn"], h, positions=positions,
-                                    theta=cfg.rope_theta, causal=True)
+    a = attn_mod.full_attention(p["attn"], tp.whole(h), positions=positions,
+                                theta=cfg.rope_theta, causal=True)
+    x = x + constrain(a, "act_btd")
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + _apply_ffn(p, cfg, run, h)
+    return x + constrain(_apply_ffn(p, cfg, run, tp.whole(h)), "act_btd")
 
 
 def _cross_layer(p: dict, cfg: ModelConfig, run: RunConfig, x: Tensor,
@@ -92,9 +117,10 @@ def _cross_layer(p: dict, cfg: ModelConfig, run: RunConfig, x: Tensor,
     dummy_pos = torch.zeros(x.shape[:2], dtype=torch.int32, device=x.device)
     a = attn_mod.full_attention(p["attn"], h, positions=dummy_pos,
                                 theta=cfg.rope_theta, x_kv=vision)
-    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * a
+    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * constrain(a, "act_btd")
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * _apply_ffn(p, cfg, run, h)
+    return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * \
+        constrain(_apply_ffn(p, cfg, run, h), "act_btd")
 
 
 # ---------------------------------------------------------------------------
@@ -167,51 +193,76 @@ def forward(params: dict, cfg: ModelConfig, run: RunConfig, tokens: Tensor,
             return_hidden: bool = False) -> Tensor:
     """tokens (B, S) -> logits (B, S, padded_vocab), or with
     ``return_hidden`` the final normed hidden states (B, S, d_model); the
-    VLM family also takes ``vision_embeds`` (B, N_vision, d_model)."""
-    _check_family(cfg)
-    b, s = tokens.shape
-    x = embed(params["embed"], tokens).to(compute_dtype(run))
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device)[None].expand(b, s)
-    # remat: each self-attention layer, not the VLM's cross layer (as JAX)
-    self_body = remat(lambda h, lp: _self_layer(lp, cfg, run, h, positions),
-                      run)
-    if cfg.family == "vlm":
-        vision = _vision(params, run, vision_embeds)
+    VLM family also takes ``vision_embeds`` (B, N_vision, d_model).  From
+    params as ``Shards`` the result is gathered onto the first shard's
+    device (one all-gather)."""
+    return tp.gather(_forward(params, cfg, run, tokens, vision_embeds,
+                              return_hidden))
 
-        def group_body(h, gp):
-            h = apply_stack(self_body, h, gp["selfs"])
-            return _cross_layer(gp["cross"], cfg, run, h, vision)
-        x = apply_stack(group_body, x, params["groups"])
-    else:
-        x = apply_stack(self_body, x, params["layers"])
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if return_hidden:
-        return x
-    return _lm_head(params, cfg, run, x)
+
+def _tp_rules(params, run: RunConfig):
+    """The activation rules a tensor-parallel forward runs under: the
+    caller's, or ``activation_rules(False, sp=run.sp)``; none on one
+    device."""
+    if not isinstance(params, tp.Shards) or sharding.active_rules():
+        return contextlib.nullcontext()
+    return sharding.activation_sharding(
+        sharding.activation_rules(False, sp=run.sp))
+
+
+def _forward(params: dict, cfg: ModelConfig, run: RunConfig, tokens: Tensor,
+             vision_embeds: Optional[Tensor] = None,
+             return_hidden: bool = False) -> Tensor:
+    """``forward`` without the gather: under tensor parallelism the logits
+    split over the vocab (the hidden states as ``act_btd`` places
+    them)."""
+    _check_family(cfg, params)
+    with _tp_rules(params, run):
+        b, s = tokens.shape
+        x = embed(params["embed"], tokens).to(compute_dtype(run))
+        x = constrain(x, "act_btd")
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(b, s)
+        # remat: each self-attention layer, not the VLM's cross layer (as JAX)
+        self_body = remat(
+            lambda h, lp: _self_layer(lp, cfg, run, h, positions), run)
+        if cfg.family == "vlm":
+            vision = _vision(params, run, vision_embeds)
+
+            def group_body(h, gp):
+                h = apply_stack(self_body, h, gp["selfs"])
+                return _cross_layer(gp["cross"], cfg, run, h, vision)
+            x = apply_stack(group_body, x, params["groups"])
+        else:
+            x = apply_stack(self_body, x, params["layers"])
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        if return_hidden:
+            return constrain(x, "act_btd")
+        return constrain(_lm_head(params, cfg, run, x), "logits")
+
+
+def _head_w(params: dict, cfg: ModelConfig):
+    """The LM head's (D, V_padded) weight: the tied embedding's transpose
+    or ``unembed/w`` (each shard's piece under tensor parallelism)."""
+    return (params["embed"]["w"].T if cfg.tie_embeddings
+            else params["unembed"]["w"])
 
 
 def _lm_head(params: dict, cfg: ModelConfig, run: RunConfig, x: Tensor) -> Tensor:
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"]["w"].to(x.dtype).T
-    else:
-        logits = unembed(params["unembed"], x)
-    pv = cfg.padded_vocab(run.tp)
-    if pv != cfg.vocab:
-        # physical vocab padding: dead columns masked to -inf
-        mask = torch.where(torch.arange(pv, device=x.device) < cfg.vocab,
-                           0.0, -1e30)
-        logits = logits + mask.to(logits.dtype)
-    return logits
+    # physical vocab padding: dead columns masked to -inf
+    return common.lm_head(x, _head_w(params, cfg), cfg.vocab,
+                          cfg.padded_vocab(run.tp))
 
 
 def train_loss(params: dict, cfg: ModelConfig, run: RunConfig,
                batch: dict) -> Tensor:
     """Mean next-token CE of ``batch`` (with ``vision_embeds`` for the VLM
-    family); chunked with ``run.ce_chunk``."""
-    w = (params["embed"]["w"].T if cfg.tie_embeddings
-         else params["unembed"]["w"])
-    return common.train_loss(forward, params, cfg, run, batch, w)
+    family); chunked with ``run.ce_chunk``.  Under tensor parallelism the
+    CE is vocab-parallel (no shard holds a whole row of logits), under the
+    activation rules of ``forward``."""
+    with _tp_rules(params, run):
+        return common.train_loss(_forward, params, cfg, run, batch,
+                                 _head_w(params, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +281,7 @@ def init_decode_state(params: dict, cfg: ModelConfig, run: RunConfig,
                       vision_embeds: Optional[Tensor] = None) -> DecodeState:
     """Zero caches; for the VLM family also each group's cross K/V of the
     projected ``vision_embeds``, computed once here."""
-    _check_family(cfg)
+    _check_decode(cfg, params)
     _, hkv = cfg.padded_heads(run.tp)
     device = params["embed"]["w"].device
     dt = compute_dtype(run)
@@ -259,7 +310,7 @@ def decode_step(params: dict, cfg: ModelConfig, run: RunConfig, token: Tensor,
                 state: DecodeState) -> tuple[Tensor, DecodeState]:
     """token (B, 1) int -> (logits (B, 1, V), new state).  The caches are
     updated in place; the returned state shares their tensors."""
-    _check_family(cfg)
+    _check_decode(cfg, params)
     x = embed(params["embed"], token).to(compute_dtype(run))
     caches = state.caches["selfs"] if cfg.family == "vlm" else state.caches
 

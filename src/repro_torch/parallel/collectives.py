@@ -11,10 +11,16 @@ order on the first shard's device.
 Every call is recorded in the module's :class:`CollectiveLog` ``LOG``,
 whose ``summary()`` is the dict
 ``collective_bytes`` returns for an HLO module, by the JAX package's
-convention: each op's RESULT bytes, all-reduce in = out, all-gather the
-gathered view.  A ``permute`` counts the bytes it sends (each source's
-piece once per pair), so the bubble of a pipeline costs nothing.  A
-collective over one shard is no collective and is not recorded.
+convention: each op's RESULT bytes on one device, all-reduce in = out,
+all-gather the gathered view, reduce-scatter one shard's piece.  A
+``permute`` counts the bytes it sends (each source's piece once per pair),
+so the bubble of a pipeline costs nothing.  A collective over one shard is
+no collective and is not recorded.
+
+The collectives are differentiable: their sums, copies, slices and
+concatenations are autograd's ops, so a backward through them runs the
+transposed transfers (a copy back, a sum of the uses of a shared result).
+Those backward transfers are autograd's and are not recorded.
 
 ``collective_bytes`` is the JAX package's HLO parser, copied.
 """
@@ -134,15 +140,17 @@ def _to(t: Tensor, device: torch.device) -> Tensor:
 
 def all_reduce(pieces: Sequence, op: str = "sum",
                devices: Optional[Sequence] = None) -> list:
-    """Shard *i*'s result of the sum (or mean) of every shard's piece.
+    """Shard *i*'s result of the sum (or mean, or elementwise max) of every
+    shard's piece.
 
     ``devices`` (the mesh's devices of the shards; default: each piece's
     own) say where each result goes; a repeated device gets one result,
     shared by its shards.  The sum runs in shard order on the first
     shard's device; the mean divides it by the number of shards.
     """
-    if op not in ("sum", "mean"):
-        raise ValueError(f"all_reduce op {op!r} not in ('sum', 'mean')")
+    if op not in ("sum", "mean", "max"):
+        raise ValueError(f"all_reduce op {op!r} not in ('sum', 'mean', "
+                         f"'max')")
     n = len(pieces)
     if devices is None:
         devices = [_device(p) for p in pieces]
@@ -152,11 +160,16 @@ def all_reduce(pieces: Sequence, op: str = "sum",
     parts = [_parts(p) for p in pieces]
     total = []
     for j in range(len(parts[0])):       # leaf by leaf: one sum alive
-        acc = _to(parts[0][j], home) + _to(parts[1][j], home)
-        for other in parts[2:]:
-            acc.add_(_to(other[j], home))
-        if op == "mean":
-            acc.div_(n)
+        if op == "max":
+            acc = _to(parts[0][j], home)
+            for other in parts[1:]:
+                acc = torch.maximum(acc, _to(other[j], home))
+        else:
+            acc = _to(parts[0][j], home) + _to(parts[1][j], home)
+            for other in parts[2:]:
+                acc.add_(_to(other[j], home))
+            if op == "mean":
+                acc.div_(n)
         total.append(acc)
     LOG.record("all-reduce", sum(_nbytes(a) for a in total))
     out: dict = {}
@@ -180,6 +193,35 @@ def all_gather(pieces: Sequence[Tensor], dim: int = 0,
             out[dev] = torch.cat([_to(p, dev) for p in pieces], dim=dim)
     LOG.record("all-gather", _nbytes(out[devices[0]]))
     return [out[dev] for dev in devices]
+
+
+def reduce_scatter(pieces: Sequence[Tensor], dim: int,
+                   devices: Optional[Sequence] = None) -> list:
+    """Shard *i*'s slice *i* along ``dim`` of the sum of every shard's
+    piece, on its device: the sum runs in shard order on the first shard's
+    device, and ``dim`` must split into as many slices as there are
+    shards.  Logged as one shard's slice, the result bytes of JAX's
+    per-device reduce-scatter."""
+    n = len(pieces)
+    if devices is None:
+        devices = [p.device for p in pieces]
+    if n == 1:
+        return list(pieces)
+    size = pieces[0].shape[dim]
+    if size % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of "
+                         f"{tuple(pieces[0].shape)} does not split into "
+                         f"{n} shards")
+    home = devices[0]
+    acc = _to(pieces[0], home) + _to(pieces[1], home)
+    for other in pieces[2:]:
+        acc.add_(_to(other, home))
+    c = size // n
+    # copies, not views: a view would keep the whole sum alive
+    out = [acc.narrow(dim, i * c, c).to(dev, non_blocking=True, copy=True)
+           for i, dev in enumerate(devices)]
+    LOG.record("reduce-scatter", _nbytes(out[0]))
+    return out
 
 
 def permute(pieces: Sequence, pairs: Sequence[tuple],

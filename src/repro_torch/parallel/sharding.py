@@ -10,11 +10,20 @@ imports nothing of it.
 ``shard_tensor`` and ``unshard`` take the place of ``NamedSharding`` and
 ``jax.device_put``: the pieces of a tensor are exactly the
 ``addressable_shards`` data a ``NamedSharding`` with the same spec gives
-over a JAX mesh of the same shape.  The activation constraints
-(``constrain``, ``activation_sharding``) wait for tensor parallelism.
+over a JAX mesh of the same shape.
+
+The activation constraints are the JAX package's: ``constrain(x, kind)`` is
+a no-op unless rules are installed with ``activation_sharding(...)``, so
+one-device runs go through the same model code with no sharding machinery.
+Under tensor parallelism the model code hands ``constrain`` a
+``parallel.tensor.Shards`` (one piece per ``"model"`` shard), and the rule
+of the call site places it: the collective that turns the pieces' layout
+into the rule's runs there (``Shards.place``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import re
 from typing import Optional
 
@@ -45,6 +54,78 @@ class PartitionSpec(tuple):
 
 
 P = PartitionSpec
+
+# ---------------------------------------------------------------------------
+# activation constraints
+# ---------------------------------------------------------------------------
+
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("activation_rules",
+                                                         default=None)
+
+
+def activation_rules(multi_pod: bool, sp: bool = False,
+                     kv_seq_shard: bool = False) -> dict:
+    """``sp=True`` = Megatron-style sequence parallelism: residual-stream
+    activations between attention/MLP blocks are sharded over the model axis
+    along the SEQUENCE dim, so the TP boundary is a reduce-scatter and the
+    next block's input an all-gather (half the bytes of the all-reduce it
+    replaces)."""
+    dp = ("pod", "data") if multi_pod else ("data",)
+    return {
+        "tokens": P(dp, None),                 # (B, S)
+        "act_btd": P(dp, "model", None) if sp  # (B, S, D)
+        else P(dp, None, None),
+        "act_btf": P(dp, None, "model"),       # (B, S, F) — ffn hidden sharded
+        "act_bthd": P(dp, None, "model", None),  # (B, S, H, hd) — heads sharded
+        "logits": P(dp, None, "model"),        # (B, S, V) — vocab sharded
+        # (B, S, KV, hd); long-context decode at batch < dp shards the
+        # sequence axis instead
+        "kv_cache": P(None, dp, "model", None) if kv_seq_shard
+        else P(dp, None, "model", None),
+        "expert_buf": P("model", None, None),  # (E, C, D)
+        # the flattened (B*S, D) token table of the MoE dispatch/combine
+        "tokens_flat": P(dp, None),
+        "tokens_grouped": P(dp, None, None),   # (G, T/G, D) grouped dispatch
+    }
+
+
+@contextlib.contextmanager
+def activation_sharding(rules: Optional[dict]):
+    """Install ``rules`` (``activation_rules``'s dict, or ``None`` for
+    none) for the calls inside the block."""
+    token = _ACTIVE.set(rules)
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(token)
+
+
+def active_rules() -> Optional[dict]:
+    return _ACTIVE.get()
+
+
+def constrain(x, kind: str):
+    """``x`` placed by the installed rule for ``kind``: ``x`` itself
+    without rules, without a rule for ``kind``, where the rule does not
+    have ``x``'s number of dims, or for a tensor (one device holds it
+    whole); a ``Shards`` is placed over the ``"model"`` axis as the rule
+    says (``Shards.place``)."""
+    rules = _ACTIVE.get()
+    if rules is None or kind not in rules:
+        return x
+    spec = rules[kind]
+    if x.ndim != len(spec) or isinstance(x, Tensor):
+        return x
+    return x.place(model_dim(spec))
+
+
+def model_dim(spec) -> Optional[int]:
+    """The dim that ``spec`` splits over ``"model"``, or ``None``."""
+    for i, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else (entry or ())
+        if "model" in axes:
+            return i
+    return None
 
 # ---------------------------------------------------------------------------
 # parameter partition rules
@@ -316,3 +397,113 @@ def _join(pieces: np.ndarray, dim_axes: list, mesh: Mesh, dim: int,
             c[mesh.axis_names.index(a)] = i
         parts.append(_join(pieces, dim_axes, mesh, dim + 1, c, home))
     return torch.cat(parts, dim=dim)
+
+
+# ---------------------------------------------------------------------------
+# trees held as pieces (tensor parallelism's params and moments)
+# ---------------------------------------------------------------------------
+
+class Sharded:
+    """A tensor held as pieces over a mesh, as ``shard_tensor`` cuts it by
+    ``spec``: ``pieces`` is an object ndarray of the mesh's shape.  Each
+    piece is a tensor of its own (never a view of a whole tensor), and the
+    coordinates that hold the same slice on the same device share one."""
+
+    __slots__ = ("pieces", "spec", "mesh")
+
+    def __init__(self, pieces: np.ndarray, spec, mesh: Mesh):
+        self.pieces, self.spec, self.mesh = pieces, P(*spec), mesh
+
+    def slice_key(self, coord: tuple) -> tuple:
+        """Which slice of the whole the piece at ``coord`` is: its index
+        along each split dim."""
+        return tuple(_split(axes, coord, self.mesh)[0] for axes in
+                     _dim_axes(self.spec, len(self.spec), self.mesh) if axes)
+
+    def owners(self) -> list:
+        """``(coord, piece)`` of each distinct piece, at the first
+        coordinate (row-major) that holds it."""
+        seen, out = set(), []
+        for coord in np.ndindex(self.pieces.shape):
+            p = self.pieces[coord]
+            if id(p) not in seen:
+                seen.add(id(p))
+                out.append((coord, p))
+        return out
+
+    def map(self, fn) -> "Sharded":
+        """``fn`` of each distinct piece, at the same coordinates."""
+        out = np.empty(self.pieces.shape, dtype=object)
+        done: dict = {}
+        for coord in np.ndindex(self.pieces.shape):
+            p = self.pieces[coord]
+            if id(p) not in done:
+                done[id(p)] = fn(p)
+            out[coord] = done[id(p)]
+        return Sharded(out, self.spec, self.mesh)
+
+    def host(self) -> Tensor:
+        """The whole tensor on the CPU (each piece copied there once)."""
+        return unshard(self.map(lambda p: p.detach().to("cpu")).pieces,
+                       self.spec, self.mesh)
+
+
+def shard_leaf(t: Tensor, spec, mesh: Mesh) -> Sharded:
+    """``t`` as a ``Sharded`` over ``mesh``: ``shard_tensor``'s pieces,
+    each slice of ``t`` that is a view on ``t``'s device copied once, so
+    that ``t`` itself may be freed; a piece that is ``t`` (a replicated
+    leaf on its own device) stays ``t``."""
+    pieces = shard_tensor(t, spec, mesh)
+    out = Sharded(np.empty(mesh.devices.shape, dtype=object), spec, mesh)
+    own: dict = {}
+    for coord in np.ndindex(pieces.shape):
+        p = pieces[coord]
+        key = (mesh.devices[coord], out.slice_key(coord))
+        if key not in own:
+            shares = (p is not t and p.device == t.device
+                      and p.untyped_storage().data_ptr()
+                      == t.untyped_storage().data_ptr())
+            own[key] = p.clone() if shares else p
+        out.pieces[coord] = own[key]
+    return out
+
+
+def shard_params(params, mesh: Mesh, tp_size: int):
+    """``params`` (or a tree of their shapes, Adam's moments) as a tree of
+    ``Sharded`` leaves, by ``param_partition_specs(params,
+    tp_size=tp_size)``."""
+    specs = param_partition_specs(params, tp_size=tp_size)
+    return _zip_map(lambda t, spec: shard_leaf(t, spec, mesh), params, specs)
+
+
+def unshard_params(tree):
+    """A tree of ``Sharded`` leaves as whole tensors on the device of each
+    leaf's first piece."""
+    return map_sharded(lambda s: unshard(s.pieces, s.spec, s.mesh), tree)
+
+
+def map_sharded(fn, tree):
+    """``fn`` of each ``Sharded`` leaf of ``tree``; other leaves as they
+    are."""
+    return _map_with_path(lambda _p, x: fn(x) if isinstance(x, Sharded)
+                          else x, tree)
+
+
+def sharded_leaves(tree) -> list:
+    """The ``Sharded`` leaves of ``tree`` in ``jax.tree.leaves`` order
+    (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in sharded_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for item in tree for x in sharded_leaves(item)]
+    return [tree] if isinstance(tree, Sharded) else []
+
+
+def _zip_map(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over two trees of one structure (the
+    second's leaves may be ``PartitionSpec``s, themselves tuples)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, Tensor):
+        return type(tree)(_zip_map(fn, v, o) for v, o in zip(tree, other))
+    return fn(tree, other)

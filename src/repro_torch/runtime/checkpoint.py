@@ -27,6 +27,12 @@ port's own ``NamedTuple`` classes (``TrainState``, ``AdamState``,
 wrote restores here; the port writes no ``treedef.pkl``, so its steps do not
 restore in the JAX package.  Cross-reading goes one way, JAX to port.
 
+A leaf held as ``Sharded`` pieces over a mesh (a tensor-parallel train
+state) is written whole, as the JAX package's ``np.asarray`` of a sharded
+array writes it: its pieces are copied to the host and joined there, so
+the step directory is the one-device layout, and ``restore`` gives whole
+tensors back (a tensor-parallel run shards them again).
+
 A bf16 leaf is written as its uint16 bits with ``"dtype": "bfloat16"`` in
 the manifest, the two bytes a value and the name that the JAX package
 writes (it stores ml_dtypes' ``|V2``); ``restore`` and
@@ -52,6 +58,7 @@ import torch
 
 from repro_torch.core import bf16, entropy, gae
 from repro_torch.core.exec import resolve_device
+from repro_torch.parallel.sharding import Sharded
 from repro_torch.runtime.grad_compress import GradCompressionState
 from repro_torch.train.loop import TrainState
 from repro_torch.train.optim import AdamState, SgdState
@@ -107,6 +114,8 @@ def _walk(node, keys: list, out: list) -> None:
         for i, v in enumerate(node):
             _walk(v, keys + [str(i)], out)
     else:
+        if isinstance(node, Sharded):
+            node = node.host()
         arr = _to_numpy(node)
         out.append((_SEP.join(keys), arr,
                     bf16.NAME if bf16.is_bf16(node) else str(arr.dtype)))

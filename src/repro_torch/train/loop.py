@@ -27,6 +27,15 @@ Data parallelism runs in one process over a mesh of devices
   (and the covariance on refresh steps) are all-reduced
   (``grad_compress.compress_update``).  The step takes and returns one
   ``TrainState`` per shard.
+
+With a ``"model"`` axis above 1 (``RunConfig.tp``) the GSPMD step is also
+tensor-parallel, for the dense and moe families: the params, Adam's moments
+and the gradients are ``sharding.Sharded`` pieces cut by
+``param_partition_specs`` (``shard_train_state``), each data shard's forward
+is the tensor-parallel forward over its row of the mesh
+(``parallel.tensor``), and AdamW runs on each piece, clipped by the global
+norm of all of them (each slice once).  A one-device ``TrainState`` handed
+to it is sharded first; a checkpoint of its state holds the whole arrays.
 """
 from __future__ import annotations
 
@@ -34,15 +43,18 @@ import weakref
 from fractions import Fraction
 from typing import Any, Callable, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.exec import resolve_device
 from repro_torch.launch.mesh import (Mesh, bound_axis, check_device_type,
-                                     data_devices)
+                                     data_devices, shard_grid, tp_size)
 from repro_torch.models import registry
 from repro_torch.models.transformer import cast_params
-from repro_torch.parallel import collectives
+from repro_torch.parallel import collectives, sharding
+from repro_torch.parallel.sharding import Sharded
+from repro_torch.parallel.tensor import Shards
 from repro_torch.runtime import grad_compress
 from repro_torch.train import optim
 
@@ -172,6 +184,11 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
                          f"{GRADIENT_COMPRESSION}")
     if axis_name is not None:
         devices = bound_axis(mesh, axis_name)
+        if tp_size(mesh) > 1:
+            raise NotImplementedError(
+                f"axis_name={axis_name!r} over a mesh with a model axis of "
+                f"{tp_size(mesh)}: gradient compression under tensor "
+                f"parallelism waits for its slice (ROADMAP.md §1)")
         if run.gradient_compression != "pca_ef":
             raise ValueError(
                 f"gradient_compression {run.gradient_compression!r} under "
@@ -181,6 +198,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
                 f"without axis_name")
         return _shard_map_step(cfg, run, optimizer, microbatches, mesh,
                                axis_name, devices)
+    if mesh is not None and tp_size(mesh) > 1:
+        _check_tensor_parallel(cfg, run, mesh)
+        return _tensor_parallel_step(cfg, run, optimizer, microbatches, mesh)
     compute_grads = value_and_grad(cfg, run, microbatches)
     apply = _apply_grads(run, optimizer)
     if mesh is not None:
@@ -247,6 +267,62 @@ def _tree_to(tree: PyTree, device: torch.device) -> PyTree:
         if isinstance(tree, Tensor) else tree
 
 
+def _shard_batches(cfg: ModelConfig, batch: dict, dp: int,
+                   microbatches: int) -> list:
+    """Data shard *s*'s ``[(rows, weight)]``, one a microbatch: global
+    microbatch *i* (rows ``i*b/m ...``, as ``value_and_grad`` cuts them) is
+    split over the ``dp`` shards, and shard *s* weighs its part by
+    ``dp * c_is / (m * C_i)`` (``c_is`` its counted labels, ``C_i`` the
+    microbatch's), so the mean over shards is the global loss and its
+    gradient even where padding labels fall unevenly (the weight is 1 where
+    they do not)."""
+    b = len(batch["tokens"])
+    if b % (dp * microbatches):
+        raise ValueError(f"batch {b} does not split into {microbatches} "
+                         f"microbatches over {dp} data shards")
+    mb, part = b // microbatches, b // (microbatches * dp)
+    counts = _label_counts(cfg, batch["labels"], microbatches * dp)
+    out = []
+    for s in range(dp):
+        pieces = []
+        for i in range(microbatches):
+            c = counts[i * dp:(i + 1) * dp]
+            w = float(Fraction(dp * c[s], microbatches * sum(c))) \
+                if sum(c) else 0.0
+            lo = i * mb + s * part
+            pieces.append((_rows(batch, lo, lo + part), w))
+        out.append(pieces)
+    return out
+
+
+def _weighted_sum(one: Callable, params, pieces: list) -> tuple:
+    """``(w * loss, *w * grads)`` of ``one(params, batch) -> (loss, list
+    of grads)`` summed over the (batch, w) ``pieces``; one piece of weight
+    1 is ``one``'s result as it is."""
+    loss, acc = None, None
+    for batch, w in pieces:
+        l, leaves = one(params, batch)
+        if w != 1.0:
+            l = l * w
+            leaves = [x.to(torch.float32) * w for x in leaves]
+        if acc is None:
+            loss, acc = l, leaves
+        else:
+            loss = loss + l
+            acc = [a + x.to(torch.float32) for a, x in zip(acc, leaves)]
+        del leaves
+    return (loss, *acc)
+
+
+def _refuse_moe_over_data_shards(cfg: ModelConfig, dp: int) -> None:
+    if dp > 1 and cfg.family == "moe":
+        raise ValueError(
+            f"{cfg.arch}: the moe family routes each data shard's tokens "
+            f"apart, with expert capacities of the shard's batch, where "
+            f"JAX's GSPMD step routes the whole batch (ROADMAP.md §3, "
+            f"divergence 10): train it over one data shard")
+
+
 def data_parallel_value_and_grad(cfg: ModelConfig, run: RunConfig,
                                  mesh: Mesh, microbatches: int = 1
                                  ) -> Callable:
@@ -256,66 +332,34 @@ def data_parallel_value_and_grad(cfg: ModelConfig, run: RunConfig,
     ``params_on`` maps each such device to its replica of the params (one
     tree will do where the shards share one device).
 
-    Global microbatch *i* (rows ``i*b/m ...``, as ``value_and_grad`` cuts
-    them) is split over the shards; shard *s* weighs its part by
-    ``dp * c_is / (m * C_i)`` (``c_is`` its counted labels, ``C_i`` the
-    microbatch's), so the mean over shards is the global loss and its
-    gradient even where padding labels fall unevenly (the weight is 1 where
-    they do not).  One mean all-reduce carries the loss and every gradient
-    leaf (``collectives.LOG`` records it).
+    The batch is split and weighed by ``_shard_batches``; one mean
+    all-reduce carries the loss and every gradient leaf
+    (``collectives.LOG`` records it).  A mesh with a model axis above 1
+    takes ``tensor_parallel_value_and_grad``.
 
     The moe family is refused over more than one shard: its routing caps
     each expert's tokens by the batch it is given, so a shard's routing is
     not the whole batch's, which JAX's GSPMD step routes (ROADMAP.md §3,
     divergence 10)."""
+    if tp_size(mesh) > 1:
+        raise ValueError(f"a model axis of {tp_size(mesh)}: the gradient "
+                         f"is tensor_parallel_value_and_grad's")
     devices = data_devices(mesh)
     dp = len(devices)
-    if dp > 1 and cfg.family == "moe":
-        raise ValueError(
-            f"{cfg.arch}: the moe family routes each data shard's tokens "
-            f"apart, with expert capacities of the shard's batch, where "
-            f"JAX's GSPMD step routes the whole batch (ROADMAP.md §3, "
-            f"divergence 10): train it over one data shard")
-    one = value_and_grad(cfg, run)
+    _refuse_moe_over_data_shards(cfg, dp)
+    vg = value_and_grad(cfg, run)
 
-    def shard_grads(params: PyTree, pieces: list) -> tuple:
-        """``(w * loss, *w * grads)`` summed over the (batch, w) pieces;
-        one piece of weight 1 is ``one``'s result as it is."""
-        loss, acc = None, None
-        for batch, w in pieces:
-            l, g = one(params, batch)
-            leaves = optim.tree_leaves(g)
-            del g
-            if w != 1.0:
-                l = l * w
-                leaves = [x.to(torch.float32) * w for x in leaves]
-            if acc is None:
-                loss, acc = l, leaves
-            else:
-                loss = loss + l
-                acc = [a + x.to(torch.float32) for a, x in zip(acc, leaves)]
-        return (loss, *acc)
+    def one(params, batch):
+        loss, g = vg(params, batch)
+        return loss, optim.tree_leaves(g)
 
     def fn(params_on, batch: dict) -> dict:
         if not isinstance(params_on, dict) or not all(
                 isinstance(k, torch.device) for k in params_on):
             params_on = {dev: params_on for dev in devices}
-        b = len(batch["tokens"])
-        if b % (dp * microbatches):
-            raise ValueError(f"batch {b} does not split into {microbatches} "
-                             f"microbatches over {dp} data shards")
-        mb, part = b // microbatches, b // (microbatches * dp)
-        counts = _label_counts(cfg, batch["labels"], microbatches * dp)
-        shards = []
-        for s, dev in enumerate(devices):
-            pieces = []
-            for i in range(microbatches):
-                c = counts[i * dp:(i + 1) * dp]
-                w = float(Fraction(dp * c[s], microbatches * sum(c))) \
-                    if sum(c) else 0.0
-                lo = i * mb + s * part
-                pieces.append((_rows(batch, lo, lo + part), w))
-            shards.append(shard_grads(params_on[dev], pieces))
+        shards = [_weighted_sum(one, params_on[dev], pieces) for dev, pieces
+                  in zip(devices, _shard_batches(cfg, batch, dp,
+                                                 microbatches))]
         reduced = dict(zip(devices, collectives.all_reduce(shards, "mean",
                                                            devices)))
         del shards
@@ -375,6 +419,235 @@ def _check_home(state: TrainState, home: torch.device) -> None:
     if at != home:
         raise ValueError(f"the state lies on {at}, not on the mesh's first "
                          f"data shard's device {home}")
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+def _check_tensor_parallel(cfg: ModelConfig, run: RunConfig,
+                           mesh: Mesh) -> None:
+    n = tp_size(mesh)
+    if run.tp != n:
+        raise ValueError(f"RunConfig.tp={run.tp} but the mesh's model axis "
+                         f"has {n} shards: the params are padded for "
+                         f"RunConfig.tp (heads, vocab), so the two must "
+                         f"agree")
+    check_tensor_parallel(cfg, run)
+
+
+def check_tensor_parallel(cfg: ModelConfig, run: RunConfig) -> None:
+    """Raise ``NotImplementedError`` for what ``run.tp`` > 1 does not train
+    yet: a family whose tensor parallelism is not ported, and gradient
+    compression (ROADMAP.md §1)."""
+    registry.check_tensor_parallel(cfg, run.tp)
+    if run.tp > 1 and run.gradient_compression != "none":
+        raise NotImplementedError(
+            f"gradient compression under tensor parallelism "
+            f"({run.gradient_compression!r}) waits for its slice "
+            f"(ROADMAP.md §1)")
+
+
+def is_sharded(tree) -> bool:
+    """Whether ``tree`` holds ``Sharded`` pieces."""
+    return bool(sharding.sharded_leaves(tree))
+
+
+def shard_train_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """``state`` (one device's, as ``init_train_state`` or a checkpoint's
+    ``restore`` gives it) with its params and each of the optimizer's
+    param-shaped trees held as ``Sharded`` pieces over ``mesh``, cut by
+    ``param_partition_specs(tp_size=)`` of the mesh's model axis."""
+    n = tp_size(mesh)
+    opt = state.opt
+    opt = type(opt)(*(f if name == "step" else
+                      sharding.shard_params(f, mesh, n)
+                      for name, f in zip(opt._fields, opt)))
+    return state._replace(params=sharding.shard_params(state.params, mesh, n),
+                          opt=opt)
+
+
+def model_shards(params, mesh: Mesh, row: int = 0) -> Shards:
+    """The params of data shard ``row``'s model shards (a tree of
+    ``Sharded`` pieces cut to each shard's tree), as the model code takes
+    them: ``models.transformer.forward(model_shards(...), ...)``."""
+    grid = shard_grid(mesh)
+    return Shards([sharding.map_sharded(
+        lambda sh, s=s: sh.pieces[grid[row, s]], params)
+        for s in range(grid.shape[1])],
+        None, [mesh.devices[c] for c in grid[row]])
+
+
+def unshard_train_state(state: TrainState) -> TrainState:
+    """A sharded state's whole tensors, each on its first piece's
+    device."""
+    opt = state.opt
+    return state._replace(
+        params=sharding.unshard_params(state.params),
+        opt=type(opt)(*(sharding.unshard_params(f) for f in opt)))
+
+
+def tensor_parallel_value_and_grad(cfg: ModelConfig, run: RunConfig,
+                                   mesh: Mesh, microbatches: int = 1
+                                   ) -> Callable:
+    """``fn(params, batch) -> (loss, grads)`` over a mesh with a
+    ``"model"`` axis: ``params`` and ``grads`` are trees of ``Sharded``
+    pieces (``shard_train_state``), each gradient piece on its param
+    piece's device; the loss lies on the mesh's first device.
+
+    Data shard *r* (row *r* of ``mesh.shard_grid``) takes its rows of the
+    batch, weighed as ``data_parallel_value_and_grad`` weighs them, and
+    runs the tensor-parallel ``train_loss`` over its model shards.  A
+    replicated leaf that the row's shards hold as one tensor gets the sum
+    of every shard's part from autograd; where they hold distinct copies
+    (distinct devices) those parts are summed over the model axis
+    (``collectives.all_reduce``).  Then the mean over the data shards, one
+    all-reduce for each model shard of the gradients it holds that no
+    earlier model shard's reduction holds (a replicated leaf that the
+    rows' shards share is reduced once).  The moe family is refused over
+    more than one data shard (ROADMAP.md §3, divergence 10)."""
+    _check_tensor_parallel(cfg, run, mesh)
+    grid = shard_grid(mesh)
+    dp, n = grid.shape
+    _refuse_moe_over_data_shards(cfg, dp)
+    api = registry.get_model(cfg)
+    early = run.cast_params_early and run.compute_dtype != run.param_dtype
+
+    def row_objects(leaves: list, r: int) -> list:
+        """For each leaf, the tensor each model shard of row ``r`` holds."""
+        return [[sh.pieces[grid[r, s]] for s in range(n)] for sh in leaves]
+
+    def row_devices(r: int) -> list:
+        return [mesh.devices[c] for c in grid[r]]
+
+    def one_row(r: int, params, leaves: list):
+        held = row_objects(leaves, r)
+        devs = row_devices(r)
+
+        def one(_params, batch: dict) -> tuple[Tensor, list]:
+            own: dict = {}
+            for objs in held:
+                for p in objs:
+                    if id(p) not in own:
+                        own[id(p)] = p.detach().requires_grad_()
+            trees = [sharding.map_sharded(
+                lambda sh, s=s: own[id(sh.pieces[grid[r, s]])], params)
+                for s in range(n)]
+            if early:
+                trees = [cast_params(t, run.compute_dtype) for t in trees]
+            loss = api.train_loss(Shards(trees, None, devs), cfg, run,
+                                  _on_device(batch, devs[0]))
+            keys = list(own)
+            got = dict(zip(keys, torch.autograd.grad(
+                loss, [own[k] for k in keys])))
+            del own, trees
+            out = []
+            for sh, objs in zip(leaves, held):
+                # distinct copies of one slice in the row: their parts
+                # summed over the model axis
+                by_slice: dict = {}
+                for s, p in enumerate(objs):
+                    by_slice.setdefault(sh.slice_key(grid[r, s]), {})[
+                        id(p)] = s
+                for ids in by_slice.values():
+                    if len(ids) > 1:
+                        summed = collectives.all_reduce(
+                            [got[i] for i in ids], "sum",
+                            [devs[s] for s in ids.values()])
+                        got.update(zip(ids, summed))
+                out.extend(got[id(p)] for p in objs)
+            return loss.detach(), out
+        return one
+
+    def fn(params, batch: dict) -> tuple[Tensor, Any]:
+        leaves = sharding.sharded_leaves(params)
+        rows = [_weighted_sum(one_row(r, params, leaves), None, pieces)
+                for r, pieces in enumerate(_shard_batches(cfg, batch, dp,
+                                                          microbatches))]
+        # rows[r] = (loss, grad of leaf l at shard s for l, s): one mean
+        # all-reduce over the data shards for each model shard, of the
+        # leaves whose rows' gradients no earlier shard's holds (the same
+        # objects lie on the same devices: one result serves both)
+        nl = len(leaves)
+        at: dict = {}                 # rows' gradient ids -> (shard, index)
+        reduced = []
+        for s in range(n):
+            mine = []
+            for l in range(nl):
+                key = tuple(id(row[1 + l * n + s]) for row in rows)
+                if key not in at:
+                    at[key] = (s, len(mine))
+                    mine.append(l)
+            parts = [tuple(row[1 + l * n + s] for l in mine)
+                     + ((row[0],) if s == 0 else ())
+                     for row in rows]
+            reduced.append(collectives.all_reduce(
+                parts, "mean", [row_devices(r)[s] for r in range(dp)])
+                if parts[0] else None)
+        loss = reduced[0][0][-1]
+        grads = {}
+        for l, sh in enumerate(leaves):
+            pieces = np.empty(sh.pieces.shape, dtype=object)
+            for s in range(n):
+                s0, j = at[tuple(id(row[1 + l * n + s]) for row in rows)]
+                for r in range(dp):
+                    pieces[grid[r, s]] = reduced[s0][r][j]
+            grads[id(sh)] = Sharded(pieces, sh.spec, sh.mesh)
+        del rows
+        return loss, sharding.map_sharded(lambda sh: grads[id(sh)], params)
+
+    return fn
+
+
+def _tensor_parallel_step(cfg: ModelConfig, run: RunConfig,
+                          optimizer: optim.Optimizer, microbatches: int,
+                          mesh: Mesh) -> Callable:
+    """The GSPMD step over a mesh with a ``"model"`` axis (module
+    docstring): the gradient pieces of ``tensor_parallel_value_and_grad``,
+    their global norm over each slice once (a sharded leaf's pieces, a
+    replicated leaf once), then the optimizer on copies of each device's
+    pieces, clipped by that norm."""
+    grads_of = tensor_parallel_value_and_grad(cfg, run, mesh, microbatches)
+    home = mesh.devices.flat[0]
+
+    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        if not is_sharded(state.params):
+            state = shard_train_state(state, mesh)
+        loss, grads = grads_of(state.params, batch)
+        opt = state.opt
+        # the params and the optimizer's trees, copied (the step is
+        # functional) and updated in place
+        trees = [sharding.map_sharded(lambda sh: sh.map(torch.clone), t)
+                 for t in (state.params, *opt[1:])]
+        groups: dict = {}         # device -> [pieces of each tree], grads
+        first: dict = {}          # device -> the gradients it holds first
+        seen: set = set()
+        for leaf in zip(*(sharding.sharded_leaves(t) for t in trees),
+                        sharding.sharded_leaves(grads)):
+            for coord, _ in leaf[0].owners():
+                dev = mesh.devices[coord]
+                g = groups.setdefault(dev, [[] for _ in leaf])
+                for lst, sh in zip(g, leaf):
+                    lst.append(sh.pieces[coord])
+                key = (id(leaf[0]), leaf[0].slice_key(coord))
+                if key not in seen:
+                    seen.add(key)
+                    first.setdefault(dev, []).append(leaf[-1].pieces[coord])
+        norm = optim.global_norm_of_groups(
+            [first[d] for d in sorted(first, key=lambda d: d != home)])
+        new_step, metrics = None, {"loss": loss}
+        for dev, lists in groups.items():
+            _, st, stats = optimizer.update(
+                lists[-1], type(opt)(opt.step.to(dev), *lists[1:-1]),
+                lists[0], norm=norm.to(dev))
+            if dev == home:
+                new_step = st.step
+                metrics.update(stats)
+        return TrainState(params=trees[0],
+                          opt=type(opt)(new_step, *trees[1:]), gc=None,
+                          step=state.step + 1), metrics
+
+    return step
 
 
 def per_shard_states(state: TrainState, mesh: Mesh,

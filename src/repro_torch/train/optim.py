@@ -83,8 +83,20 @@ def global_norm(tree: PyTree) -> Tensor:
                           for x in leaves))
 
 
-def clip_by_global_norm(tree: PyTree, max_norm: float) -> tuple[PyTree, Tensor]:
-    norm = global_norm(tree)
+def global_norm_of_groups(groups: list) -> Tensor:
+    """The l2 norm of several groups of leaves together, each group's
+    squares summed on its own device by ``global_norm`` and the groups'
+    sums added on the first group's device: the norm of a tree held as
+    pieces on several devices, each piece in one group once."""
+    home = tree_leaves(groups[0])[0].device
+    return torch.sqrt(sum(torch.square(global_norm(g)).to(home)
+                          for g in groups))
+
+
+def clip_by_global_norm(tree: PyTree, max_norm: float,
+                        norm: Optional[Tensor] = None
+                        ) -> tuple[PyTree, Tensor]:
+    norm = global_norm(tree) if norm is None else norm
     scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
     return tree_map(lambda x: x * scale.to(x.dtype), tree), norm
 
@@ -137,7 +149,11 @@ class AdamState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """init(params) -> state;  update(grads, state, params) -> (params, state, stats)."""
+    """init(params) -> state;  update(grads, state, params, norm=None) ->
+    (params, state, stats).  ``norm``, where the caller holds the gradients
+    as pieces (tensor parallelism), is their global norm as it counted it
+    (``global_norm_of_groups``), on the params' device; without it the
+    update takes ``global_norm(grads)``."""
     init: Callable[[PyTree], Any]
     update: Callable[[PyTree, Any, PyTree], tuple[PyTree, Any, dict]]
 
@@ -199,13 +215,14 @@ def adamw(lr: float | Callable[[Any], Tensor] = 1e-3,
             nu=tree_zeros_like(params, torch.float32))
 
     @torch.no_grad()
-    def update(grads: PyTree, state: AdamState, params: PyTree):
+    def update(grads: PyTree, state: AdamState, params: PyTree,
+               norm: Optional[Tensor] = None):
         stats = {}
         scale = None
         if max_grad_norm is not None:
             # clip_by_global_norm's scale, applied group by group below, so
             # no clipped copy of the whole gradient tree is made
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads) if norm is None else norm
             scale = torch.clamp(max_grad_norm / (gnorm + 1e-12), max=1.0)
             stats["grad_norm"] = gnorm
         step = state.step + 1
@@ -265,10 +282,10 @@ def sgd(lr: float | Callable = 1e-2, momentum: float = 0.0,
                         tree_zeros_like(params))
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, norm=None):
         stats = {}
         if max_grad_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+            grads, gnorm = clip_by_global_norm(grads, max_grad_norm, norm)
             stats["grad_norm"] = gnorm
         step = state.step + 1
         lr_t = sched(step)

@@ -113,7 +113,7 @@ def _leaves(tree):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("param_dtype", "float16"), ("dp", 2), ("sp", True)])
+    ("param_dtype", "float16"), ("dp", 2), ("param_dtype", "float64")])
 def test_run_config_refuses_what_the_port_does_not_honour(field, value):
     JRunConfig(**{field: value})             # the JAX package takes it
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -131,6 +131,8 @@ def test_run_config_takes_what_the_port_honours():
     assert RunConfig(**train) == dataclasses.replace(RunConfig(), **train)
     # per-group MoE dispatch (tests/test_torch_moe.py holds it to JAX's)
     assert RunConfig(moe_dispatch_groups=2).moe_dispatch_groups == 2
+    # tensor parallelism (tests/test_torch_tensor_parallel.py)
+    assert RunConfig(tp=2, sp=True).sp
     # the dry-run's run configs (tests/test_torch_run_config.py)
     dry = dict(param_dtype="bfloat16", compute_dtype="bfloat16", remat=True,
                cast_params_early=True)

@@ -499,7 +499,8 @@ def test_axis_name_modes_and_binding(pair):
     with pytest.raises(ValueError, match="not on the mesh's first"):
         loop.make_train_step(pair.cfg, RunConfig(), opt, mesh=elsewhere)(
             state, _batch(pair.cfg.vocab, 0))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="RunConfig.tp=1 but the mesh's "
+                                         "model axis has 2 shards"):
         loop.make_train_step(pair.cfg, RunConfig(), opt, mesh=make_mesh(
             (1, 2), ("data", "model"), ["cpu"] * 2))
 
