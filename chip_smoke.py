@@ -113,7 +113,8 @@ Phases, each reported on its own lines:
    the routing flips between the two counted); granite's routing at the
    published capacity factor (``moe_router_stats`` and the dropped share);
    the device time of one ``decode_step`` against its wall, and
-   ``ServeEngine.serve`` on 8 requests (4-token prompts, 4 new tokens)
+   ``ServeEngine.serve`` on 4 requests over 2 slots (4-token prompts, 4
+   new tokens)
    with raw KV and with ``kv_tau``
    0.05 (each VLM request with its own vision embeddings as its frontend;
    quantize launched for every model's KV caches), and the peak device
@@ -127,7 +128,8 @@ Phases, each reported on its own lines:
    24 causal decoder and 24 cross layers, counted apart), the bf16 gate
    and the consistency gate as above, the quantize kernel on a prefilled
    decoder cache with the cross K/V left raw by ``kv_tau``, and
-   ``ServeEngine.serve`` of 8 requests (whisper's 4-token start sequence,
+   ``ServeEngine.serve`` of 4 requests over 2 slots (whisper's 4-token
+   start sequence,
    8 new tokens, a 448-token cache), each with its own seeded frames as
    its frontend, with raw KV and ``kv_tau`` 0.05 (gates: 24 flash launches
    and, with ``kv_tau``, 2 quantize launches for each admitted request);
@@ -146,7 +148,7 @@ Phases, each reported on its own lines:
    gradients within tau 1e-3 in every block (ssd_scan once per layer,
    quantize and gae_project once per leaf) and ``save_compressed`` /
    ``restore_compressed`` at tau 0.45 with every block within it (the
-   checkpoint of 12 of its 48 layers, full width);
+   checkpoint of 4 of its 48 layers, full width);
    reduced mamba2-370m through ``python -m repro_torch.launch.train`` (2
    steps with a checkpoint every 2 and ``--grad-compression pca_ef`` at
    once, then ``--resume`` for 2 more and ``--grad-compression gae`` at
@@ -223,11 +225,37 @@ Phases, each reported on its own lines:
    the one-device MoE's; printed: the routing flips and dropped share);
    (e) ``python -m repro_torch.launch.train
    --arch qwen2-1.5b --reduced --tp 2 --device cuda:0,cuda:0 --steps 4``
-   (exit 0, flash 32) and ``--tp 2`` with mamba2-370m (exit 2 naming
-   ROADMAP.md) as subprocesses.  Each sub-phase prints its wall, device
-   busy and idle share; flash_attention's rows at the per-shard shapes
-   (``TP_FLASH``) are timed in phase 2 and take their launches from here;
-12. one JSON line with every kernel's numbers (one row per kernel and
+   (exit 0, flash 32) and ``--tp 2 --grad-compression pca_ef`` (exit 2
+   naming ROADMAP.md) as subprocesses, run at the end of phase 12 with its
+   own launcher (f).  Each sub-phase prints its wall,
+   device busy and idle share; flash_attention's rows at the per-shard
+   shapes (``TP_FLASH``) are timed in phase 2 and take their launches from
+   here;
+12. tensor parallelism of the ssm, hybrid, vlm and audio families over the
+   card repeated, seeded weights at ``RunConfig(tp=2)``, TF32 off: (a)
+   mamba2-370m's TP ``forward``, fp32, B 1 x S 4096, ``sp`` off and on
+   (gates: logits within 1e-5 of the largest |logit| of one device's;
+   ssd_scan 96 launches; the logged collectives, the packed weights'
+   all-gathers, the gated norm's all-reduces and the boundaries', equal
+   their reckoning); (b) its gradient and 4 TP AdamW steps, fp32 with
+   remat (gates: every leaf within 1e-5 of its largest of one device's,
+   the replicated ``conv_b`` and ``ln/scale`` and the B and C columns of
+   ``in_proj`` printed by name; params within Adam's first-step bound;
+   the loss falls; peak printed against one device's); (c)
+   recurrentgemma-9b on bf16 params (gates: phase 8's bf16 gate on the
+   last logits, flash 24, each block of the first triple and the first
+   tail block in fp32 on the one-device input within 1e-5, the peak under
+   80 GiB); (d) llama-3.2-vision-11b on bf16 params with seeded gates and
+   vision embeddings (the bf16 gate, flash 64 self + 16 cross); (e)
+   whisper-medium, fp32, B 4 x 448 over 1500 frames (gates: logits within
+   1e-5, flash 48 + 48 + 48, the gradient within 1e-5 of each leaf's
+   largest, 2 TP steps within Adam's first-step bound); (f) ``python -m
+   repro_torch.launch.train --arch mamba2-370m --reduced --tp 2 --device
+   cuda:0,cuda:0 --steps 4`` (exit 0, ssd_scan 32), at once with phase
+   11's (e).  The rows of
+   flash_attention and ssd_scan at these shard shapes (``TP12_FLASH``,
+   ``SSD_TP``) are timed in phase 2 and take their launches from here;
+13. one JSON line with every kernel's numbers (one row per kernel and
    dtype, and the train rows), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -639,7 +667,8 @@ def check_kernels(torch, dev) -> dict:
     # ssd_scan: the mamba2-370m prefill (B 1, S 4096, H 32, P 64, G 1, N 128,
     # chunk 256), a ragged S, G = 2; and the same with N 256, two tiles of
     # the state (no model of the repo has it: its own row, "path" "N 256",
-    # held to the plain version, its time reported, not gated).  Inputs as
+    # held to the plain version, its time reported, not gated); and a tp-2
+    # shard of the prefill, its 16 heads (its own row, "path" SSD_TP).  Inputs as
     # the JAX kernel tests make them.  The bound counts the chunked algorithm's products over the
     # chunks' real lengths: the causal half of C.B^T once per group (b and c
     # are shared by the group's heads), and per head the causal half of
@@ -650,7 +679,8 @@ def check_kernels(torch, dev) -> dict:
     for b, s_, h, p, g, n, chunk in ((1, 4096, 32, 64, 1, 128, 256),
                                      (1, 1000, 32, 64, 1, 128, 256),
                                      (1, 4096, 32, 64, 2, 128, 256),
-                                     (1, 4096, 32, 64, 1, 256, 256)):
+                                     (1, 4096, 32, 64, 1, 256, 256),
+                                     (1, 4096, 16, 64, 1, 128, 256)):
         x = torch.randn(b, s_, h, p, generator=gen, device=dev)
         dt = F.softplus(torch.randn(b, s_, h, generator=gen, device=dev))
         a_log = torch.rand(h, generator=gen, device=dev)
@@ -692,7 +722,8 @@ def check_kernels(torch, dev) -> dict:
         b_ms, b_by = row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
                          "src/repro/kernels/ssd_scan/kernel.py:32", err,
                          t[0], t_plain[0], None, n_bytes, flops,
-                         path=SSD_WIDE if n > 128 else None)
+                         path=(SSD_WIDE if n > 128 else SSD_TP if h == 16
+                               else None))
         report("ssd_scan", (b, s_, h, p, g, n, chunk), err, t, t_plain, None,
                b_ms, b_by)
         if n > 128:
@@ -717,6 +748,14 @@ TP_DP, TP_DP_SEQ = 2, 2048      # (c): B 2 x S 2048 over a (2, 2) mesh
 TP_STEPS = 4                    # (b)
 TP_FLASH = {"qwen2-1.5b": "qwen2-1.5b tp 2",
             "granite-moe-3b-a800m": "granite-moe-3b-a800m tp 2"}
+# phase 12: the rows of flash_attention and ssd_scan at the other families'
+# tp-2 shard shapes
+TP12_FLASH = {"rgemma": "recurrentgemma-9b tp 2",
+              "vlm": "llama-3.2-vision-11b tp 2",
+              "vlm cross": "llama-3.2-vision-11b cross tp 2",
+              "encoder": "whisper-medium encoder tp 2",
+              "cross": "whisper-medium cross tp 2"}
+SSD_TP = "mamba2-370m tp 2"
 
 
 # flash_attention at the other model paths' shapes, each in rows of its own
@@ -731,7 +770,10 @@ TP_FLASH = {"qwen2-1.5b": "qwen2-1.5b tp 2",
 # last key tile) and cross-attention (its 448 decoder tokens on the 1500
 # frames), at the prefill's B 4; and the per-shard shapes of phase 11's
 # tensor parallelism at tp 2: qwen2-1.5b's 6 query heads on 1 kv head of
-# 128, granite-moe-3b-a800m's 12 on 4 of 64.
+# 128, granite-moe-3b-a800m's 12 on 4 of 64; and phase 12's:
+# recurrentgemma-9b's 8 query heads on its kv head (padded to 2, one a
+# shard), llama-3.2-vision-11b's 16 on 4 (self and cross), whisper-medium's
+# 8 on 8 (encoder and cross).
 # (path, b, s, t, h, kv heads, hd, causal, window)
 FA_PATH_CASES = (
     ("recurrentgemma-9b", 1, 4096, 4096, 16, 1, 256, True, 2048),
@@ -742,7 +784,12 @@ FA_PATH_CASES = (
     ("whisper-medium encoder", 4, 1500, 1500, 16, 16, 64, False, 0),
     ("whisper-medium cross", 4, 448, 1500, 16, 16, 64, False, 0),
     (TP_FLASH["qwen2-1.5b"], 1, 4096, 4096, 6, 1, 128, True, 0),
-    (TP_FLASH["granite-moe-3b-a800m"], 1, 4096, 4096, 12, 4, 64, True, 0))
+    (TP_FLASH["granite-moe-3b-a800m"], 1, 4096, 4096, 12, 4, 64, True, 0),
+    (TP12_FLASH["rgemma"], 1, 4096, 4096, 8, 1, 256, True, 2048),
+    (TP12_FLASH["vlm"], 1, 4096, 4096, 16, 4, 128, True, 0),
+    (TP12_FLASH["vlm cross"], 1, 4096, 1601, 16, 4, 128, False, 0),
+    (TP12_FLASH["encoder"], 4, 1500, 1500, 8, 8, 64, False, 0),
+    (TP12_FLASH["cross"], 4, 448, 1500, 8, 8, 64, False, 0))
 
 
 def _flash_path_rows(torch, dev, gen, row, report) -> None:
@@ -1736,13 +1783,14 @@ LM_MODELS = (("qwen2-1.5b", "flash_attention"), ("mamba2-370m", "ssd_scan"),
 # prefill only, (arch, layers kept)
 CUT_MODELS = (("llama4-scout-17b-a16e", 4), ("deepseek-coder-33b", 16))
 PREFILL_TOKENS = 4096
-CONSISTENCY_PROMPT = 64
+CONSISTENCY_PROMPT = 32
 # forward's last logits (the kernels, chunked) against the engine's prefill
 # (one decode step at a time, plain code), fp32 through 28 to 48 layers
 CONSISTENCY_ATOL = 1e-3
-# serving is host-bound (one decode_step a token): 4-token prompts and 4
-# new tokens keep it to 56 decode_step calls a run
-SERVE = dict(requests=8, slots=4, prompt=4, new=4, max_len=128)
+# serving is host-bound (one decode_step a token): 4 requests over 2 slots
+# (each slot refilled once), 4-token prompts and 4 new tokens keep it to 28
+# decode_step calls a run
+SERVE = dict(requests=4, slots=2, prompt=4, new=4, max_len=128)
 # decode_step calls per request: the prompt's prefill, then all new tokens
 # but the last
 SERVE_STEPS = SERVE["requests"] * (SERVE["prompt"] + SERVE["new"] - 1)
@@ -1757,7 +1805,7 @@ TAIL = 64
 WHISPER = "whisper-medium"
 WHISPER_BATCH, WHISPER_TOKENS = 4, 448
 WHISPER_PROMPT = (50258, 50259, 50359, 50363)
-WHISPER_SERVE = dict(requests=8, slots=4, new=8, max_len=448)
+WHISPER_SERVE = dict(requests=4, slots=2, new=8, max_len=448)
 # the VLM's cross layers' tanh gates are set to seeded values in this range
 # (at their init of 0 a cross layer adds nothing, and no check would see a
 # wrong cross-attention)
@@ -2201,7 +2249,7 @@ def run_whisper_path(torch, dev, counters) -> dict:
     the bf16 logits through the kernel held to those through its plain
     version; ``forward``'s last logits against the engine's prefill; the
     quantize kernel on a prefilled decoder cache; one ``decode_step``'s
-    device time against its wall; ``ServeEngine.serve`` of 8 requests, each
+    device time against its wall; ``ServeEngine.serve`` of 4 requests, each
     with its own seeded frames as its frontend, with raw KV and ``kv_tau``
     (24 flash launches, one encoder, for each admitted request; quantize
     twice for each, the cross K/V left raw).  Returns flash's launches in
@@ -2557,9 +2605,9 @@ LAUNCH_REDUCED_SEQ = 512
 GRAD_TAU = 1e-3
 # the compressed checkpoint of the seeded mamba2-370m params: just under
 # the per-block l2 norm (about 0.5) of the lecun-scaled in_proj and unembed;
-# its host coder takes about a second a layer, so the depth is cut to 12
+# its host coder takes about a second a layer, so the depth is cut to 4
 CKPT_TAU = 0.45
-CKPT_LAYERS = 12
+CKPT_LAYERS = 4
 # the chaos run: reduced qwen2-1.5b, 6 steps, failures at calls 2 and 5,
 # checkpoints every 2 steps; held to the uninterrupted run within 1 % of the
 # summed learning rate (any reduction whose order varies on the card moves
@@ -3868,7 +3916,7 @@ def run_tensor_parallel_path(torch, dev, counters) -> dict:
     with the logged collectives against their reckoning; (b) 4 TP AdamW
     steps with the train config; (c) a GSPMD+TP step over a (2, 2) mesh;
     (d) granite-moe-3b-a800m's EP forward in bf16 and each layer's EP MoE
-    in fp32; (e) the launcher.
+    in fp32; its launcher, (e), runs with phase 12's (``tp_launchers``).
     Returns flash_attention's launches at its per-shard shapes."""
     from repro_torch.configs import get_config
 
@@ -3889,7 +3937,6 @@ def run_tensor_parallel_path(torch, dev, counters) -> dict:
     timed("c", tp_data_and_model, torch, dev, counters, cfg)
     out[("flash_attention", "bfloat16", TP_FLASH["granite-moe-3b-a800m"])] \
         = timed("d", tp_granite, torch, dev, counters)
-    timed("e", tp_launcher)
     print(f"tp: the phase took {time.perf_counter() - t0:.1f} s (seconds a "
           f"sub-phase: {json.dumps(took)})", flush=True)
     return out
@@ -4380,29 +4427,714 @@ def tp_granite(torch, dev, counters) -> int:
     return n_flash
 
 
-def tp_launcher() -> None:
-    """(e) ``python -m repro_torch.launch.train --arch qwen2-1.5b --reduced
-    --tp 2 --device cuda:0,cuda:0 --steps 4`` (gates: exit 0, its done
-    line, flash launched layers x shards a step) and, at once, ``--tp 2``
-    with mamba2-370m (gate: exit 2 naming ROADMAP.md)."""
+# ---------------------------------------------------------------------------
+# phase 12: tensor parallelism of the ssm, hybrid, vlm and audio families
+# ---------------------------------------------------------------------------
+
+TP12_STEPS = 4                  # (b)
+TP12_WHISPER_STEPS = 2          # (e)
+TP12_WHISPER_B, TP12_WHISPER_S = 4, 448
+
+
+def _tp12_ssm_reckoning(cfg, b: int, s: int, tp: int, sp: bool) -> dict:
+    """The collectives of mamba2-370m's tensor-parallel ``forward`` (fp32),
+    reckoned from its shapes: the embedding's all-reduce of (b, s, d); each
+    layer's all-gathers of its two packed weights, (d, proj_out) and
+    (cw, conv_ch), its gated norm's all-reduce of (b, s, 1) and its
+    boundary's all-reduce of (b, s, d); with sp, reduce-scatters of one
+    shard's (b, s / tp, d) in place of the embedding's and the boundaries'
+    all-reduces, and the all-gathers of each block's input and of the
+    head's (b, s, d); the row-split head's reduce-scatter of one shard's
+    partial logits (b, s, V / tp); the all-gather of the logits (b, s,
+    V)."""
+    from repro_torch.models import ssd
+
+    dm = ssd._dims(cfg)
+    proj_out = 2 * dm["d_inner"] + 2 * dm["G"] * dm["N"] + dm["H"]
+    act, n, v = b * s * cfg.d_model * 4, cfg.n_layers, cfg.padded_vocab(tp)
+    weights = n * (cfg.d_model * proj_out + cfg.conv_width * dm["conv_ch"]) * 4
+    ops = {"all-gather": [2 * n + 1, weights + b * s * v * 4],
+           "all-reduce": [n, n * b * s * 4],
+           "reduce-scatter": [1, b * s * (v // tp) * 4]}
+    if sp:
+        ops["reduce-scatter"][0] += 1 + n
+        ops["reduce-scatter"][1] += (1 + n) * (act // tp)
+        ops["all-gather"][0] += n + 1
+        ops["all-gather"][1] += (n + 1) * act
+    else:
+        ops["all-reduce"][0] += 1 + n
+        ops["all-reduce"][1] += (1 + n) * act
+    return {"bytes": {k: v[1] for k, v in ops.items()},
+            "counts": {k: v[0] for k, v in ops.items()},
+            "total_bytes": sum(v[1] for v in ops.values())}
+
+
+def run_tp_families_path(torch, dev, counters) -> dict:
+    """Phase 12, tensor parallelism of the ssm, hybrid, vlm and audio
+    families over the card repeated: (a) mamba2-370m's TP forward, fp32,
+    sp off and on, its logged collectives against their reckoning; (b) 4
+    TP AdamW steps of it with remat; (c) recurrentgemma-9b's TP forward on
+    bf16 params and each block of its first triple and its first tail
+    block in fp32; (d) llama-3.2-vision-11b's on bf16 params; (e)
+    whisper-medium's TP forward and 2 steps, fp32; (f) the launcher on
+    reduced mamba2-370m, with phase 11's (e).  Returns the launches of ssd_scan and
+    flash_attention at their per-shard shapes."""
+    t0 = time.perf_counter()
+    out, took = {}, {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        got = fn(*args)
+        took[name] = round(time.perf_counter() - t, 1)
+        return got
+
+    out.update(timed("a", tp12_mamba_forward, torch, dev, counters))
+    timed("b", tp12_mamba_train, torch, dev, counters)
+    out.update(timed("c", tp12_rgemma, torch, dev, counters))
+    out.update(timed("d", tp12_vlm, torch, dev, counters))
+    out.update(timed("e", tp12_whisper, torch, dev, counters))
+    timed("f", tp_launchers)
+    print(f"tp12: the phase took {time.perf_counter() - t0:.1f} s (seconds "
+          f"a sub-phase: {json.dumps(took)})", flush=True)
+    return out
+
+
+def tp12_mamba_forward(torch, dev, counters) -> dict:
+    """(a) mamba2-370m, seeded fp32 params at ``RunConfig(tp=2)`` sharded
+    over (1, 2) of the card repeated, B 1 x S TRAIN_SEQ.  Gates, sp off and
+    on: the TP ``forward``'s logits within 1e-5 of the largest |logit| of
+    the one-device ``forward``, or, where the one-device forward through
+    ssd_scan is itself further than that from the same forward through its
+    plain version (the chunk-256 scan's order of summation, ROADMAP.md §3
+    divergence 4, compounded over 48 layers), within 1.5 x that distance;
+    every one of the 48 blocks, TP against one device on the one-device
+    input to it, within 1e-5 of the largest |value| of its output;
+    ssd_scan launched once per layer and shard; the logged collectives
+    equal their reckoning (``_tp12_ssm_reckoning``), counts and bytes.
+    Printed: wall, device busy, idle share.  Returns ssd_scan's launches at
+    the shard's shape."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import common, registry, ssd
+    from repro_torch.parallel import collectives, sharding
+    from repro_torch.parallel import tensor as tp
+    from repro_torch.train import loop
+
+    cfg = get_config("mamba2-370m")
+    run = RunConfig(tp=TP_N)
+    gen = torch.Generator(dev).manual_seed(0)
+    params = registry.init_params(cfg, run, gen, dev)
+    tokens = torch.randint(0, cfg.vocab, (1, TRAIN_SEQ), generator=gen,
+                           device=dev)
+    mesh = make_mesh((1, TP_N), ("data", "model"), [dev] * TP_N)
+    shards = loop.model_shards(sharding.shard_params(params, mesh, TP_N),
+                               mesh)
+    launched = None
+    with torch.no_grad():
+        ssd.forward(params, cfg, run, tokens[:, :256])            # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = ssd.forward(params, cfg, run, tokens)
+        torch.cuda.synchronize()
+        one_wall = time.perf_counter() - t0
+        scale = one.abs().max().item()
+        with _plain("ssd_scan"):
+            floor = (ssd.forward(params, cfg, run, tokens) - one).abs().max(
+                ).item() / scale
+        limit = max(1e-5, 1.5 * floor)
+        for sp in (False, True):
+            r = dataclasses.replace(run, sp=sp)
+            ssd.forward(shards, cfg, r, tokens[:, :256])        # warm-up
+            for c in counters.values():
+                c.reset()
+            collectives.LOG.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = ssd.forward(shards, cfg, r, tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_ssd = counters["ssd_scan"].value
+            logged = collectives.LOG.summary()
+            err = (got - one).abs().max().item() / scale
+            shape = tuple(got.shape)
+            del got
+            p_wall, busy, idle = _tp_idle(
+                torch, lambda: ssd.forward(shards, cfg, r, tokens))
+            want = _tp12_ssm_reckoning(cfg, 1, TRAIN_SEQ, TP_N, sp)
+            print(f"tp12 (a) {cfg.arch} forward, fp32, B 1 x S {TRAIN_SEQ}, "
+                  f"tp {TP_N} over {TP_N} x {dev}, sp {sp}: wall {wall:.4f} "
+                  f"s (one device {one_wall:.4f} s); profiled repeat wall "
+                  f"{p_wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+                  f"{idle:.4f}; logits {shape} within {err:.3e} of the "
+                  f"largest |logit| {scale:.4f} of one device's (gate "
+                  f"{limit:.3e}: 1e-5, or 1.5 x the one-device forward's "
+                  f"{floor:.3e} from its plain version's); ssd_scan "
+                  f"launched {n_ssd} (gate {cfg.n_layers * TP_N}); logged "
+                  f"{json.dumps(logged)} (reckoned {json.dumps(want)})",
+                  flush=True)
+            if not err <= limit:
+                raise CheckFailed(f"tp12 (a) sp {sp}: logits {err:.3e} of "
+                                  f"the largest from one device's")
+            if n_ssd != cfg.n_layers * TP_N:
+                raise CheckFailed(f"tp12 (a) sp {sp}: ssd_scan launched "
+                                  f"{n_ssd} times")
+            if logged != want:
+                raise CheckFailed(f"tp12 (a) sp {sp}: logged {logged}, "
+                                  f"reckoned {want}")
+            launched = launched or n_ssd
+        del one
+        # each block on the one-device input to it
+        x = common.embed(params["embed"], tokens).float()
+        blocks = []
+        with sharding.activation_sharding(sharding.activation_rules(False)):
+            for i in range(cfg.n_layers):
+                y = ssd._block_forward(common.layer(params["layers"], i),
+                                       cfg, x)
+                have = tp.gather(ssd._block_forward(
+                    common.layer(shards["layers"], i), cfg,
+                    tp.replicate(x, shards)))
+                blocks.append((have - y).abs().max().item()
+                              / y.abs().max().item())
+                x = y
+    worst = max(blocks)
+    print(f"tp12 (a) {cfg.arch} each of the {cfg.n_layers} blocks, TP on the "
+          f"one-device input to it: within {worst:.3e} of the largest "
+          f"|output| (gate 1e-5; block {blocks.index(worst)}; the first "
+          f"{blocks[0]:.3e}, the last {blocks[-1]:.3e})", flush=True)
+    if not worst <= 1e-5:
+        raise CheckFailed(f"tp12 (a): a block {worst:.3e} of the largest "
+                          f"from one device's")
+    del params, shards, x, y, have
+    torch.cuda.empty_cache()
+    return {("ssd_scan", "float32", SSD_TP): launched}
+
+
+def tp12_mamba_train(torch, dev, counters) -> None:
+    """(b) TP12_STEPS TP AdamW steps of mamba2-370m, B 1 x S TRAIN_SEQ,
+    fp32 with remat and ce_chunk, over (1, 2).  Gates: the TP gradient,
+    every leaf unsharded, within 1e-5 of its largest entry of one device's,
+    or, where the one-device gradient through ssd_scan is itself further
+    than that from the one through its plain version (as (a)), within 1.5 x
+    that leaf's distance (printed by name: the replicated
+    ``layers/ssd/conv_b`` and ``layers/ln/scale``, and the B and C columns
+    of ``layers/ssd/in_proj``, which every shard reads); after one step every param within Adam's
+    first-step bound of the one-device step's; finite losses, the last
+    below step 0's; ssd_scan launched twice a layer and shard a step (the
+    forward and remat's recompute).  Printed: losses, walls, peak memory of
+    steps 1-3 against the one-device step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ssd
+    from repro_torch.train import loop, optim
+
+    cfg = get_config("mamba2-370m")
+    run = RunConfig(tp=TP_N, remat=True, ce_chunk=TRAIN_CE_CHUNK)
+    opt = optim.adamw(optim.warmup_cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                                   TRAIN_STEPS),
+                      weight_decay=0.01, max_grad_norm=1.0)
+    corpus = SyntheticCorpus(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1, seed=0))
+    state = loop.init_train_state(torch.Generator(dev).manual_seed(0), cfg,
+                                  run, opt, dev)
+    paths = _tree_paths(state.params)
+    batch = corpus.batch_at(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one, m_one = loop.make_train_step(cfg, run, opt)(state, batch)
+    torch.cuda.synchronize()
+    peak_one = torch.cuda.max_memory_allocated() / 2 ** 30
+    new_one = optim.tree_leaves(one.params)
+    del one
+    _, g = loop.value_and_grad(cfg, run)(state.params, batch)
+    g_one = optim.tree_leaves(g)
+    with _plain("ssd_scan"):
+        _, g = loop.value_and_grad(cfg, run)(state.params, batch)
+    dm = ssd._dims(cfg)
+    bc = slice(2 * dm["d_inner"], 2 * dm["d_inner"] + 2 * dm["G"] * dm["N"])
+    i_bc = paths.index("layers/ssd/in_proj")
+
+    def dist(got):
+        """Each leaf's distance from one device's over its largest, and
+        that of the B and C columns of ``in_proj``."""
+        out = [(a - b).abs().max().item() / b.abs().max().item()
+               for a, b in zip(got, g_one)]
+        out.append((got[i_bc][..., bc] - g_one[i_bc][..., bc]).abs().max(
+            ).item() / g_one[i_bc][..., bc].abs().max().item())
+        return out
+
+    floor = dist(optim.tree_leaves(g))
+    del g
+    mesh = make_mesh((1, TP_N), ("data", "model"), [dev] * TP_N)
+    state = loop.shard_train_state(state, mesh)
+    torch.cuda.empty_cache()
+    _, g_tp = loop.tensor_parallel_value_and_grad(cfg, run, mesh)(
+        state.params, batch)
+    g_tp = list(_unshard_leaves(torch, g_tp))
+    names = paths + ["layers/ssd/in_proj B, C columns"]
+    got = dist(g_tp)
+    ratio = [d / max(1e-5, 1.5 * f) for d, f in zip(got, floor)]
+    at = names[ratio.index(max(ratio))]
+    named = {n: f"{got[names.index(n)]:.3e} (floor "
+             f"{floor[names.index(n)]:.3e})"
+             for n in ("layers/ssd/conv_b", "layers/ln/scale",
+                       "layers/ssd/in_proj B, C columns")}
+    print(f"tp12 (b) {cfg.arch} gradient, fp32, remat, ce_chunk "
+          f"{TRAIN_CE_CHUNK}, tp {TP_N}: every leaf within {max(got):.3e} of "
+          f"its largest of one device's; the one-device gradient through "
+          f"ssd_scan within {max(floor):.3e} of the one through its plain "
+          f"version; the worst leaf at {max(ratio):.4f} of its gate (gate 1: "
+          f"1e-5, or 1.5 x the leaf's floor; {at}); by name "
+          f"{json.dumps(named)}", flush=True)
+    if not max(ratio) <= 1.0:
+        raise CheckFailed(f"tp12 (b): the TP gradient of {at} is "
+                          f"{max(ratio):.3f} x its gate from one device's")
+    step = loop.make_train_step(cfg, run, opt, mesh=mesh)
+    losses, walls, launched = [], [], []
+    for i in range(TP12_STEPS):
+        for c in counters.values():
+            c.reset()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, m = step(state, corpus.batch_at(i))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        launched.append(counters["ssd_scan"].value)
+        if i == 0:
+            norms = [math.sqrt(sum(float(x.double().square().sum())
+                                   for x in gs)) for gs in (g_one, g_tp)]
+            clip = [min(1.0, 1.0 / (n + 1e-12)) for n in norms]
+            lr = float(optim.warmup_cosine_schedule(
+                TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)(1))
+            worst_p, at_p = 0.0, None
+            for path, p, gj, gt, a, b in zip(
+                    paths, _unshard_leaves(torch, state.params), g_one, g_tp,
+                    new_one, _unshard_leaves(torch, new.params)):
+                ratio, terms = _first_step_excess(
+                    torch, p, gj * clip[0], gt * clip[1], a, b, lr)
+                if at_p is None or ratio > worst_p:
+                    worst_p, at_p = ratio, (path, terms)
+            del g_one, g_tp, new_one, p, gj, gt, a, b
+        state = new
+        del new
+    peak_tp = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"tp12 (b) {cfg.arch} trained tp {TP_N} over {TP_N} x {dev}, B 1 x "
+          f"S {TRAIN_SEQ}, fp32, remat: losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)} (one device's step 0 "
+          f"{float(m_one['loss']):.4f}); step walls s "
+          f"{' '.join(f'{x:.4f}' for x in walls)}; peak memory of steps "
+          f"1-{TP12_STEPS - 1} {peak_tp:.2f} GiB against the one-device "
+          f"step's {peak_one:.2f} GiB; new params at {worst_p:.4f} of Adam's "
+          f"first-step bound of the one-device step's (gate 1; set in "
+          f"{at_p[0]} by {at_p[1]}); ssd_scan launched {launched} (gate "
+          f"{2 * cfg.n_layers * TP_N} a step)", flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise CheckFailed(f"tp12 (b): losses {losses} do not fall")
+    if not worst_p <= 1.0:
+        raise CheckFailed(f"tp12 (b): a new param is {worst_p:.3f}x Adam's "
+                          f"first-step bound from the one-device step's")
+    if any(n != 2 * cfg.n_layers * TP_N for n in launched):
+        raise CheckFailed(f"tp12 (b): ssd_scan launched {launched}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def _tp12_bf16_gate(what, got, one, ref) -> tuple:
+    """Phase 8's bf16 gate, as phase 11 (d) holds granite: the TP bf16
+    logits ``got`` within 1.5 x the one-device bf16 logits' (``one``)
+    distance from the fp32-compute logits ``ref`` + 1e-3 x its max
+    |logit|.  Returns (TP distance, one-device distance, gate)."""
+    e_tp = (got - ref).abs().max().item()
+    e_one = (one - ref).abs().max().item()
+    limit = 1.5 * e_one + 1e-3 * ref.abs().max().item()
+    if not e_tp <= limit:
+        raise CheckFailed(f"{what}: bf16 logits {e_tp} from the fp32-compute "
+                          f"forward's, more than {limit}")
+    return e_tp, e_one, limit
+
+
+def _tp12_bf16_forward(torch, dev, counters, api, cfg, shards, tokens, extra):
+    """The TP bf16 forward, warmed up, with the counters reset before it:
+    (logits, wall s, peak GiB, flash calls by (q, k) shape)."""
+    from repro_torch.configs.base import RunConfig
+
+    run16 = RunConfig(tp=TP_N, compute_dtype="bfloat16")
+    api.forward(shards, cfg, run16, tokens[:, :256], **extra)    # warm-up
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with FlashRecorder() as rec:
+        logits = api.forward(shards, cfg, run16, tokens, **extra)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (logits, wall, torch.cuda.max_memory_allocated() / 2 ** 30,
+            rec.calls)
+
+
+def tp12_rgemma(torch, dev, counters) -> dict:
+    """(c) recurrentgemma-9b at full width and depth, seeded params at
+    ``RunConfig(tp=2)`` cast to bf16, over (1, 2) of the card repeated,
+    B 1 x S TRAIN_SEQ.  Gates: the TP bf16 ``forward``'s last TAIL logits
+    (the real columns) within phase 8's bf16 gate (``_tp12_bf16_gate``);
+    flash_attention launched once per local-attention layer and shard; each
+    block of the first triple (rec1, rec2, the attention block) and the
+    first tail block, in fp32 compute on the input the one-device
+    fp32-compute forward gave it, within 1e-5 of the largest |value| of the
+    one-device block's output (a mis-sliced ``lru/alpha`` or ``conv/b``, a
+    gate's columns); peak memory under the card's.  Returns the flash
+    launches at the shard's shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import common, registry, rglru, transformer
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel import tensor as tp
+    from repro_torch.train import loop
+
+    cfg = get_config("recurrentgemma-9b")
+    run32 = RunConfig(tp=TP_N)
+    gen = torch.Generator(dev).manual_seed(0)
+    params = transformer.cast_params(
+        registry.init_params(cfg, run32, gen, dev), "bfloat16")
+    torch.cuda.empty_cache()
+    tokens = torch.randint(0, cfg.vocab, (1, TRAIN_SEQ), generator=gen,
+                           device=dev)
+    mesh = make_mesh((1, TP_N), ("data", "model"), [dev] * TP_N)
+    shards = loop.model_shards(sharding.shard_params(params, mesh, TP_N),
+                               mesh)
+    real = (slice(None), slice(-TAIL, None), slice(0, cfg.vocab))
+    n_triples = cfg.n_layers // cfg.attn_period
+    # the blocks checked in fp32, by their rank among the forward's calls
+    want_rec = {0: ("triples", "rec1"), 1: ("triples", "rec2"),
+                2 * n_triples: ("tail", None)}
+    inputs, calls = {}, {"rec": 0, "attn": 0}
+    rec_block, attn_block = rglru._rec_block, rglru._attn_block
+
+    def rec(p, cfg_, x):
+        if calls["rec"] in want_rec:
+            inputs[want_rec[calls["rec"]]] = x.clone()
+        calls["rec"] += 1
+        return rec_block(p, cfg_, x)
+
+    def attn(p, cfg_, x, positions):
+        if calls["attn"] == 0:
+            inputs[("triples", "attn_layer")] = x.clone()
+        calls["attn"] += 1
+        return attn_block(p, cfg_, x, positions)
+
+    api = registry.get_model(cfg)
+    with torch.no_grad():
+        rglru._rec_block, rglru._attn_block = rec, attn
+        try:
+            ref = api.forward(params, cfg, run32, tokens)[real].float().clone()
+        finally:
+            rglru._rec_block, rglru._attn_block = rec_block, attn_block
+        one = api.forward(params, cfg, RunConfig(
+            tp=TP_N, compute_dtype="bfloat16"), tokens)[real].float()
+        logits, wall, peak, fa_calls = _tp12_bf16_forward(
+            torch, dev, counters, api, cfg, shards, tokens, {})
+        n_flash = counters["flash_attention"].value
+        shape = tuple(logits.shape)
+        got = logits[real].float()
+        del logits
+        p_wall, busy, idle = _tp_idle(torch, lambda: api.forward(
+            shards, cfg, RunConfig(tp=TP_N, compute_dtype="bfloat16"),
+            tokens))
+    e_tp, e_one, limit = _tp12_bf16_gate("tp12 (c)", got, one, ref)
+    del got, one, ref
+    positions = torch.arange(TRAIN_SEQ, dtype=torch.int32,
+                             device=dev)[None]
+    blocks = {}
+    with torch.no_grad(), sharding.activation_sharding(
+            sharding.activation_rules(False)):
+        for (stack, name), x in inputs.items():
+            p_one = common.layer(params[stack], 0)
+            p_tp = common.layer(shards[stack], 0)
+            if name is not None:
+                p_one, p_tp = p_one[name], p_tp[name]
+            args = (positions,) if name == "attn_layer" else ()
+            fn = attn_block if name == "attn_layer" else rec_block
+            want = fn(p_one, cfg, x, *args)
+            have = tp.gather(fn(p_tp, cfg, tp.replicate(x, p_tp), *args))
+            blocks[f"{stack}/{name or 0}"] = (
+                (have - want).abs().max().item() / want.abs().max().item())
+    print(f"tp12 (c) {cfg.arch} forward, bf16 params and compute, tp {TP_N} "
+          f"over {TP_N} x {dev}: logits {shape}; wall {wall:.4f} s; profiled "
+          f"repeat wall {p_wall:.1f} ms, device busy {busy:.1f} ms, idle "
+          f"share {idle:.4f}; peak memory {peak:.2f} GiB; flash_attention "
+          f"launched {n_flash} (gate {n_triples * TP_N}) at q, k "
+          f"{sorted(set((q, k) for q, k, _ in fa_calls))}; last {TAIL} "
+          f"logits (the {cfg.vocab} real columns): TP {e_tp:.6f} from the "
+          f"fp32-compute forward, one device's bf16 {e_one:.6f} (gate "
+          f"{limit:.6f}); each block in fp32 on the one-device input, within "
+          f"{json.dumps({k: f'{v:.3e}' for k, v in blocks.items()})} of the "
+          f"largest |output| (gate 1e-5)", flush=True)
+    if n_flash != n_triples * TP_N:
+        raise CheckFailed(f"tp12 (c): flash_attention launched {n_flash}")
+    if len(blocks) != 4 or not max(blocks.values()) <= 1e-5:
+        raise CheckFailed(f"tp12 (c): blocks in fp32 {blocks}")
+    if not peak < 80:
+        raise CheckFailed(f"tp12 (c): peak memory {peak:.2f} GiB")
+    del params, shards, inputs
+    torch.cuda.empty_cache()
+    return {("flash_attention", "bfloat16", TP12_FLASH["rgemma"]): n_flash}
+
+
+def tp12_vlm(torch, dev, counters) -> dict:
+    """(d) llama-3.2-vision-11b at full width and depth, seeded params at
+    ``RunConfig(tp=2)`` with its tanh gates and vision embeddings seeded as
+    phase 8 seeds them, cast to bf16, over (1, 2) of the card repeated,
+    B 1 x S TRAIN_SEQ.  Gates: phase 8's bf16 gate on the real columns of
+    the last TAIL logits; flash_attention launched once per layer and shard
+    (32 self-attention layers on 4096 keys, 8 cross layers on the 1601
+    vision tokens).  Returns the flash launches at each shard shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry, transformer
+    from repro_torch.parallel import sharding
+    from repro_torch.train import loop
+
+    cfg = get_config("llama-3.2-vision-11b")
+    run32 = RunConfig(tp=TP_N)
+    gen = torch.Generator(dev).manual_seed(0)
+    params, extra = _seeded_model(torch, dev, cfg, run32, gen)
+    params = transformer.cast_params(params, "bfloat16")
+    torch.cuda.empty_cache()
+    tokens = torch.randint(0, cfg.vocab, (1, TRAIN_SEQ), generator=gen,
+                           device=dev)
+    mesh = make_mesh((1, TP_N), ("data", "model"), [dev] * TP_N)
+    shards = loop.model_shards(sharding.shard_params(params, mesh, TP_N),
+                               mesh)
+    real = (slice(None), slice(-TAIL, None), slice(0, cfg.vocab))
+    api = registry.get_model(cfg)
+    with torch.no_grad():
+        ref = api.forward(params, cfg, run32, tokens,
+                          **extra)[real].float().clone()
+        one = api.forward(params, cfg, RunConfig(
+            tp=TP_N, compute_dtype="bfloat16"), tokens, **extra)[real].float()
+        logits, wall, peak, fa_calls = _tp12_bf16_forward(
+            torch, dev, counters, api, cfg, shards, tokens, extra)
+        n_flash = counters["flash_attention"].value
+        shape = tuple(logits.shape)
+        got = logits[real].float()
+        del logits
+        p_wall, busy, idle = _tp_idle(torch, lambda: api.forward(
+            shards, cfg, RunConfig(tp=TP_N, compute_dtype="bfloat16"),
+            tokens, **extra))
+    e_tp, e_one, limit = _tp12_bf16_gate("tp12 (d)", got, one, ref)
+    split = {"self": sum(1 for q, k, _ in fa_calls if k[1] == TRAIN_SEQ),
+             "cross": sum(1 for q, k, _ in fa_calls
+                          if k[1] == cfg.n_vision_tokens)}
+    n_cross = cfg.n_layers // cfg.cross_period
+    want = {"self": (cfg.n_layers - n_cross) * TP_N, "cross": n_cross * TP_N}
+    print(f"tp12 (d) {cfg.arch} forward, bf16 params and compute, tp {TP_N} "
+          f"over {TP_N} x {dev}: logits {shape}; wall {wall:.4f} s; profiled "
+          f"repeat wall {p_wall:.1f} ms, device busy {busy:.1f} ms, idle "
+          f"share {idle:.4f}; peak memory {peak:.2f} GiB; flash_attention "
+          f"launched {n_flash} (gate {cfg.n_layers * TP_N}), by attention "
+          f"{json.dumps(split)} (gate {json.dumps(want)}); last {TAIL} logits "
+          f"(the {cfg.vocab} real columns): TP {e_tp:.6f} from the "
+          f"fp32-compute forward, one device's bf16 {e_one:.6f} (gate "
+          f"{limit:.6f})", flush=True)
+    if n_flash != cfg.n_layers * TP_N or split != want:
+        raise CheckFailed(f"tp12 (d): flash_attention launched {n_flash}, "
+                          f"{split}")
+    del params, shards, got, one, ref
+    torch.cuda.empty_cache()
+    return {("flash_attention", "bfloat16", TP12_FLASH["vlm"]): split["self"],
+            ("flash_attention", "bfloat16", TP12_FLASH["vlm cross"]):
+                split["cross"]}
+
+
+def tp12_whisper(torch, dev, counters) -> dict:
+    """(e) whisper-medium at full width and depth, seeded fp32 params at
+    ``RunConfig(tp=2)`` (vocab padded to 52 224) over (1, 2) of the card
+    repeated, B TP12_WHISPER_B x TP12_WHISPER_S tokens over seeded frames.
+    Gates: the TP ``forward``'s logits within 1e-5 of the largest |logit|
+    of one device's; flash_attention launched once per attention layer and
+    shard (the encoder, the causal decoder, the cross layers); the TP
+    gradient of every leaf within 1e-5 of its largest of one device's (the
+    key biases, 0 in exact arithmetic, below 1e-6 of the largest of all);
+    after one of TP12_WHISPER_STEPS AdamW steps every param within Adam's
+    first-step bound of the one-device step's; finite losses.  Returns the
+    flash launches at the encoder's and the cross layers' shard shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import whisper
+    from repro_torch.parallel import sharding
+    from repro_torch.train import loop, optim
+
+    cfg = get_config("whisper-medium")
+    run = RunConfig(tp=TP_N)
+    gen = torch.Generator(dev).manual_seed(0)
+    b, s = TP12_WHISPER_B, TP12_WHISPER_S
+    opt = optim.adamw(optim.warmup_cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                                   TRAIN_STEPS),
+                      weight_decay=0.01, max_grad_norm=1.0)
+    state = loop.init_train_state(gen, cfg, run, opt, dev)
+    frames = torch.randn(b, cfg.n_frames, cfg.d_model, generator=gen,
+                         device=dev)
+
+    def batch_at(i):
+        g = torch.Generator(dev).manual_seed(100 + i)
+        toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=g,
+                             device=dev)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                "frames": frames}
+
+    batch = batch_at(0)
+    mesh = make_mesh((1, TP_N), ("data", "model"), [dev] * TP_N)
+    shards = loop.model_shards(sharding.shard_params(state.params, mesh,
+                                                     TP_N), mesh)
+    real = (..., slice(0, cfg.vocab))      # the padding columns are -1e30
+    with torch.no_grad():
+        one = whisper.forward(state.params, cfg, run, batch["tokens"], frames)
+        scale = one[real].abs().max().item()
+        whisper.forward(shards, cfg, run, batch["tokens"][:, :64], frames)
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with FlashRecorder() as rec:
+            got = whisper.forward(shards, cfg, run, batch["tokens"], frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_flash = counters["flash_attention"].value
+        err = (got[real] - one[real]).abs().max().item() / scale
+        padded = bool((got[..., cfg.vocab:] < -1e29).all())
+        shape = tuple(got.shape)
+        del got, one
+        p_wall, busy, idle = _tp_idle(torch, lambda: whisper.forward(
+            shards, cfg, run, batch["tokens"], frames))
+    f = cfg.n_frames
+    split = {"encoder": sum(1 for q, k, c in rec.calls
+                            if not c and q[1] == k[1] == f),
+             "decoder": sum(1 for q, k, c in rec.calls if c),
+             "cross": sum(1 for q, k, c in rec.calls
+                          if not c and q[1] != f and k[1] == f)}
+    want = {"encoder": cfg.n_enc_layers * TP_N,
+            "decoder": cfg.n_layers * TP_N, "cross": cfg.n_layers * TP_N}
+    print(f"tp12 (e) {cfg.arch} forward, fp32, B {b} x {s} over {f} frames, "
+          f"tp {TP_N} over {TP_N} x {dev}: logits {shape}; wall {wall:.4f} "
+          f"s; profiled repeat wall {p_wall:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle share {idle:.4f}; logits (the {cfg.vocab} "
+          f"real columns) within {err:.3e} of the largest |logit| "
+          f"{scale:.4f} of one device's (gate 1e-5), the padding columns "
+          f"below -1e29 {padded}; "
+          f"flash_attention launched {n_flash}, by attention "
+          f"{json.dumps(split)} (gate {json.dumps(want)})", flush=True)
+    if not err <= 1e-5 or not padded:
+        raise CheckFailed(f"tp12 (e): logits {err:.3e} of the largest, the "
+                          f"padding columns masked {padded}")
+    if split != want or n_flash != sum(want.values()):
+        raise CheckFailed(f"tp12 (e): flash_attention launched {n_flash}, "
+                          f"{split}")
+    del shards
+    paths = _tree_paths(state.params)
+    zero = [p.endswith("/bk") for p in paths]
+    one, m_one = loop.make_train_step(cfg, run, opt)(state, batch)
+    new_one = optim.tree_leaves(one.params)
+    del one
+    _, g = loop.value_and_grad(cfg, run)(state.params, batch)
+    g_one = optim.tree_leaves(g)
+    del g
+    state = loop.shard_train_state(state, mesh)
+    _, g_tp = loop.tensor_parallel_value_and_grad(cfg, run, mesh)(
+        state.params, batch)
+    g_tp = list(_unshard_leaves(torch, g_tp))
+    worst = _grads_per_leaf_close("tp12 (e) the TP gradient against one "
+                                  "device's", g_tp, g_one, zero=zero)
+    step = loop.make_train_step(cfg, run, opt, mesh=mesh)
+    losses, walls = [], []
+    for i in range(TP12_WHISPER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, m = step(state, batch_at(i))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        if i == 0:
+            norms = [math.sqrt(sum(float(x.double().square().sum())
+                                   for x in gs)) for gs in (g_one, g_tp)]
+            clip = [min(1.0, 1.0 / (n + 1e-12)) for n in norms]
+            lr = float(optim.warmup_cosine_schedule(
+                TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)(1))
+            worst_p, at_p = 0.0, None
+            for path, p, gj, gt, a, bb in zip(
+                    paths, _unshard_leaves(torch, state.params), g_one, g_tp,
+                    new_one, _unshard_leaves(torch, new.params)):
+                ratio, terms = _first_step_excess(
+                    torch, p, gj * clip[0], gt * clip[1], a, bb, lr)
+                if at_p is None or ratio > worst_p:
+                    worst_p, at_p = ratio, (path, terms)
+            del g_one, g_tp, new_one
+        state = new
+        del new
+    print(f"tp12 (e) {cfg.arch} trained tp {TP_N}, fp32, B {b} x {s}: "
+          f"gradients within {worst:.3e} of each leaf's largest of one "
+          f"device's (gate 1e-5; the key biases below 1e-6 of the largest); "
+          f"losses {' '.join(f'{x:.4f}' for x in losses)} (one device's "
+          f"step 0 {float(m_one['loss']):.4f}); step walls s "
+          f"{' '.join(f'{x:.4f}' for x in walls)}; new params at "
+          f"{worst_p:.4f} of Adam's first-step bound of the one-device "
+          f"step's (gate 1; set in {at_p[0]} by {at_p[1]})", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise CheckFailed(f"tp12 (e): losses {losses}")
+    if not worst_p <= 1.0:
+        raise CheckFailed(f"tp12 (e): a new param is {worst_p:.3f}x Adam's "
+                          f"first-step bound from the one-device step's")
+    del state
+    torch.cuda.empty_cache()
+    return {("flash_attention", "float32", TP12_FLASH["encoder"]):
+            split["encoder"],
+            ("flash_attention", "float32", TP12_FLASH["cross"]):
+            split["cross"]}
+
+
+def tp_launchers() -> None:
+    """Phase 11 (e) and phase 12 (f), as subprocesses at once: ``python -m
+    repro_torch.launch.train --arch qwen2-1.5b --reduced --tp 2 --device
+    cuda:0,cuda:0 --steps 4`` (gates: exit 0, its done line, flash launched
+    layers x shards a step), the same with ``--arch mamba2-370m`` (ssd_scan
+    layers x shards a step), and ``--tp 2 --grad-compression pca_ef``
+    (gate: exit 2 naming ROADMAP.md)."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import reduced_config
 
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    layers = reduced_config(get_config("qwen2-1.5b")).n_layers
+    layers = {a: reduced_config(get_config(a)).n_layers
+              for a in ("qwen2-1.5b", "mamba2-370m")}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         refused = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-             "mamba2-370m", "--tp", "2", "--device", "cuda:0,cuda:0",
-             "--steps", "1", "--ckpt", os.path.join(tmp, "m")],
+             "qwen2-1.5b", "--reduced", "--tp", "2", "--grad-compression",
+             "pca_ef", "--device", "cuda:0,cuda:0", "--steps", "1",
+             "--ckpt", os.path.join(tmp, "r")],
             env=env, cwd=tmp, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
         try:
-            got, = _train_cli_group(
-                [("tp", ["--arch", "qwen2-1.5b", "--reduced", "--tp", "2",
-                         "--device", "cuda:0,cuda:0", "--steps", "4",
-                         "--ckpt", os.path.join(tmp, "q")],
+            qwen, mamba = _train_cli_group(
+                [("tp qwen2", ["--arch", "qwen2-1.5b", "--reduced", "--tp",
+                               "2", "--device", "cuda:0,cuda:0", "--steps",
+                               "4", "--ckpt", os.path.join(tmp, "q")],
+                  ("done: steps 0->4",)),
+                 ("tp mamba2", ["--arch", "mamba2-370m", "--reduced", "--tp",
+                                "2", "--device", "cuda:0,cuda:0", "--steps",
+                                "4", "--batch", "1", "--seq",
+                                str(LAUNCH_REDUCED_SEQ), "--ckpt",
+                                os.path.join(tmp, "m")],
                   ("done: steps 0->4",))], env, tmp)
             said = refused.communicate(timeout=300)[0]
         finally:
@@ -4411,16 +5143,22 @@ def tp_launcher() -> None:
                 refused.wait()
         wall = time.perf_counter() - t0
     print(f"tp (e) the launcher: --tp 2 over cuda:0,cuda:0 launched "
-          f"{json.dumps(got)} in 4 steps (gate flash_attention "
-          f"{4 * layers * TP_N}); --tp 2 with mamba2-370m exit "
-          f"{refused.returncode}: {said.strip().splitlines()[-1:]}; wall "
-          f"{wall:.1f} s for both (device busy not measured: subprocesses)",
+          f"{json.dumps(qwen)} in 4 steps (gate flash_attention "
+          f"{4 * layers['qwen2-1.5b'] * TP_N}); --tp 2 with --grad-compression "
+          f"pca_ef exit {refused.returncode}: "
+          f"{said.strip().splitlines()[-1:]}", flush=True)
+    print(f"tp12 (f) the launcher: --arch mamba2-370m --reduced --tp 2 over "
+          f"cuda:0,cuda:0 launched {json.dumps(mamba)} in 4 steps (gate "
+          f"ssd_scan {4 * layers['mamba2-370m'] * TP_N}); wall {wall:.1f} s "
+          f"for the three at once (device busy not measured: subprocesses)",
           flush=True)
-    if got["flash_attention"] != 4 * layers * TP_N:
-        raise CheckFailed(f"tp (e): flash_attention launched {got}")
+    if qwen["flash_attention"] != 4 * layers["qwen2-1.5b"] * TP_N:
+        raise CheckFailed(f"tp (e): flash_attention launched {qwen}")
     if refused.returncode != 2 or "ROADMAP.md" not in said:
-        raise CheckFailed(f"tp (e): --tp 2 with mamba2-370m exited "
+        raise CheckFailed(f"tp (e): --tp 2 with pca_ef exited "
                           f"{refused.returncode}: {said[-500:]}")
+    if mamba["ssd_scan"] != 4 * layers["mamba2-370m"] * TP_N:
+        raise CheckFailed(f"tp12 (f): ssd_scan launched {mamba}")
 
 
 # ---------------------------------------------------------------------------
@@ -4506,6 +5244,8 @@ def main() -> int:
         timed("parallel", run_parallel_path, torch, dev, counters)
         launches.update(timed("tp", run_tensor_parallel_path, torch, dev,
                               counters))
+        launches.update(timed("tp families", run_tp_families_path, torch,
+                              dev, counters))
     except (CheckFailed, AssertionError) as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

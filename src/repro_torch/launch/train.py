@@ -16,15 +16,15 @@ plus ``--device``.  As the JAX launcher, it builds the host mesh
 (one device, or a comma-separated list where a device may repeat:
 ``--device cuda:0,cuda:0`` runs two shards on one card), and steps in the
 GSPMD mode (``train.loop``): data-parallel over the mesh's rows and, with
-``--tp`` above 1, tensor-parallel over each row's model shards (the dense
-and moe families; params padded for ``--tp``); ``--batch`` must split over
-the data shards (exit 2).  On one device the step is the one-device step.
-The moe family trains over one data shard: over more it exits 2.  SIGTERM
-and SIGINT checkpoint at the next step boundary and stop.  Exit 2 at parse
-time also for ``--tp`` above 1 with the ssm or hybrid family or with
-``--grad-compression pca_ef|gae``, and for the vlm and audio families:
-their batches need a frontend (``vision_embeds``, ``frames``) that the token
-pipeline does not make.  ``--resume`` reads a step directory written by
+``--tp`` above 1, tensor-parallel over each row's model shards (the dense,
+moe, ssm and hybrid families; params padded for ``--tp``); ``--batch`` must
+split over the data shards (exit 2).  On one device the step is the
+one-device step.  The moe family trains over one data shard: over more it
+exits 2.  SIGTERM and SIGINT checkpoint at the next step boundary and stop.
+Exit 2 at parse time also for ``--tp`` above 1 with ``--grad-compression
+pca_ef|gae``, and for the vlm and audio families: their batches need a
+frontend (``vision_embeds``, ``frames``) that the token pipeline does not
+make.  ``--resume`` reads a step directory written by
 this launcher (with any ``--tp``: the arrays are whole) or by the JAX
 package's (``runtime.checkpoint``), and shards it over the mesh.
 """

@@ -12,12 +12,15 @@ Initializers draw from an explicit ``torch.Generator`` on its own device and
 move the result to ``device``; they do not reproduce ``jax.random``.
 
 Under tensor parallelism the params of each ``"model"`` shard come as a
-``parallel.tensor.Shards``: the norms and the MLP run on each shard's piece
+``parallel.tensor.Shards``: the norms and the MLPs run on each shard's piece
 (``shardwise``), the embedding, the LM head and the cross-entropy are
-vocab-parallel, and the layer stack walks every shard's stack at once.
+vocab-parallel, and the layer stack walks every shard's stack at once.  A
+model's ``forward`` and ``train_loss`` run under :func:`tp_rules`, and its
+decode refuses split params (:func:`refuse_sharded_decode`).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -70,6 +73,23 @@ def layernorm_init(d: int, device, lead=()) -> dict:
             "bias": torch.zeros(*lead, d, device=device)}
 
 
+def rmsnorm_over_shards(params: dict, x, eps: float = 1e-6):
+    """``rmsnorm`` of ``x`` whose last dim the shards split (each shard's
+    piece of ``x`` and of ``params["scale"]``): the mean of squares is the
+    sum of every shard's squares (one all-reduce) over the whole width.  A
+    tensor goes through ``rmsnorm``."""
+    if not isinstance(x, Shards):
+        return rmsnorm(params, x, eps)
+    width = x.shape[-1]
+
+    def norm(xs, ss, scale):
+        y = xs.to(torch.float32) * torch.rsqrt(ss / width + eps)
+        return (y * scale).to(xs.dtype)
+    return tp.each(norm, x, tp.sum_of_squares(x), params["scale"],
+                   layout=x.layout)
+
+
+@shardwise()
 def layernorm(params: dict, x: Tensor, eps: float = 1e-5) -> Tensor:
     """In fp32 (the variance with ddof 0), cast back to ``x``'s dtype."""
     x32 = x.to(torch.float32)
@@ -160,9 +180,18 @@ def gelu_mlp_init(gen: torch.Generator, d: int, f: int, device,
 
 
 def gelu_mlp(params: dict, x: Tensor) -> Tensor:
+    """From split params a partial sum: each shard adds its columns of the
+    replicated ``b_in``, and shard 0 alone adds ``b_out``."""
+    return tp.each(_gelu_mlp, params, x, layout=tp.PARTIAL, indexed=True)
+
+
+def _gelu_mlp(s: int, params: dict, x: Tensor) -> Tensor:
     dt = x.dtype
-    h = gelu(x @ params["w_in"].to(dt) + params["b_in"].to(dt))
-    return h @ params["w_out"].to(dt) + params["b_out"].to(dt)
+    f = params["w_in"].shape[-1]
+    h = gelu(x @ params["w_in"].to(dt)
+             + params["b_in"][..., s * f:(s + 1) * f].to(dt))
+    y = h @ params["w_out"].to(dt)
+    return y + params["b_out"].to(dt) if s == 0 else y
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +252,30 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism of a model
+# ---------------------------------------------------------------------------
+
+def tp_rules(params, run):
+    """The activation rules a tensor-parallel forward runs under: the
+    caller's, or ``activation_rules(False, sp=run.sp)``; none on one
+    device."""
+    if not isinstance(params, Shards) or sharding.active_rules():
+        return contextlib.nullcontext()
+    return sharding.activation_sharding(
+        sharding.activation_rules(False, sp=run.sp))
+
+
+def refuse_sharded_decode(cfg, params) -> None:
+    """Decoding from params split over a model axis needs sharded decode
+    state: ``NotImplementedError`` naming the roadmap."""
+    if isinstance(params, Shards):
+        raise NotImplementedError(f"{cfg.arch}: decoding from params split "
+                                  f"over a model axis needs sharded decode "
+                                  f"state, which waits for its slice "
+                                  f"(ROADMAP.md §1)")
+
+
+# ---------------------------------------------------------------------------
 # losses
 # ---------------------------------------------------------------------------
 
@@ -270,8 +323,8 @@ def chunked_ce_loss(x: Tensor, unembed_w: Tensor, labels: Tensor, vocab: int,
     w = unembed_w.to(x.dtype)
 
     def one(xi: Tensor, w: Tensor, li: Tensor):
-        return _nll(tp.each(_chunk_logits, xi, w, logit_mask_from,
-                            layout=xi.ndim - 1, indexed=True), li, vocab)
+        return _nll(tp.each(_mask_padding, _head(xi, w).to(torch.float32),
+                            logit_mask_from, indexed=True), li, vocab)
 
     nll_total = count = 0
     for i in range(0, s, chunk):
@@ -282,32 +335,43 @@ def chunked_ce_loss(x: Tensor, unembed_w: Tensor, labels: Tensor, vocab: int,
     return nll_total / torch.clamp(count, min=1)
 
 
-def _chunk_logits(s: int, xi: Tensor, w: Tensor, mask_from: int) -> Tensor:
-    """Shard ``s``'s float32 logits of a chunk, (B, c, V_shard), with the
-    padding columns (global index >= ``mask_from``, if set) at -1e30."""
-    logits = (xi @ w).to(torch.float32)                    # (B, c, Vpad)
-    v = w.shape[1]
+def _head(x: Tensor, w: Tensor) -> Tensor:
+    """``x @ w`` (``w``: (D, V_padded)), vocab-split from split ``w``: from
+    its columns at once; from its rows (an untied ``unembed/w``, which the
+    partition rules cut by D: ``embed/w$`` matches it first) each shard's
+    part of the sum over D, reduce-scattered over the vocab."""
+    if not isinstance(w, Shards):
+        return x @ w.to(x.dtype)
+    if w.pieces[0].shape[0] == x.shape[-1]:
+        return tp.each(lambda xs, ws: xs @ ws.to(xs.dtype), x, w,
+                       layout=x.ndim - 1)
+
+    def rows(s, xs, ws):
+        d = ws.shape[0]
+        return xs[..., s * d:(s + 1) * d] @ ws.to(xs.dtype)
+    return tp.each(rows, x, w, layout=tp.PARTIAL,
+                   indexed=True).place(x.ndim - 1)
+
+
+def _mask_padding(s: int, logits: Tensor, mask_from: int) -> Tensor:
+    """Shard ``s``'s vocab-split logits (all of them on one device) with
+    the padding columns (global index >= ``mask_from``, if set) at
+    -1e30."""
+    v = logits.shape[-1]
     if mask_from and mask_from < (s + 1) * v:
-        logits = logits + torch.where(
-            torch.arange(s * v, (s + 1) * v, device=xi.device)
-            < mask_from, 0.0, -1e30)
+        mask = torch.where(torch.arange(s * v, (s + 1) * v,
+                                        device=logits.device) < mask_from,
+                           0.0, -1e30)
+        logits = logits + mask.to(logits.dtype)
     return logits
 
 
 def lm_head(x: Tensor, w: Tensor, vocab: int, padded: int) -> Tensor:
     """``x @ w`` (``w``: (D, V_padded)) with the padding columns at -1e30;
-    from vocab-split ``w`` the vocab-split logits, each shard masking the
-    padding columns it holds."""
-    def head(s, xs, ws):
-        logits = xs @ ws.to(xs.dtype)
-        if padded != vocab:
-            v = ws.shape[-1]
-            mask = torch.where(torch.arange(s * v, (s + 1) * v,
-                                            device=xs.device) < vocab,
-                               0.0, -1e30)
-            logits = logits + mask.to(logits.dtype)
-        return logits
-    return tp.each(head, tp.whole(x), w, layout=x.ndim - 1, indexed=True)
+    from split ``w`` the vocab-split logits (``_head``), each shard masking
+    the padding columns it holds."""
+    return tp.each(_mask_padding, _head(tp.whole(x), w),
+                   vocab if padded != vocab else 0, indexed=True)
 
 
 def train_loss(forward: Callable, params: dict, cfg, run, batch: dict,

@@ -49,7 +49,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
 
 
 # the families whose params compute split over a "model" axis
-TENSOR_PARALLEL_FAMILIES = ("dense", "moe")
+TENSOR_PARALLEL_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
 def check_tensor_parallel(cfg: ModelConfig, tp: int) -> None:

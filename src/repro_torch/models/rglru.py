@@ -15,6 +15,14 @@ the CPU).  Decode is a single elementwise state update per layer (the state
 is O(1)), updated in place; the attention layers' KV cache is a
 ``window``-sized ring buffer.  The coefficients of the recurrence and its
 state ``h`` stay float32 whatever the compute dtype, as in the JAX package.
+
+Tensor parallelism splits the LRU width W (``w_x``, ``w_gate_branch``,
+``conv/w``, the gates' columns and biases; ``lru_out`` by row), the MLP and
+the attention heads.  ``lru/alpha`` and ``conv/b`` are replicated (JAX's
+spec, cut to their one dim, names no axis), so each shard takes its
+channels of them.  Each gate is a (W, W) matmul split by column, so every
+shard needs the whole conv output: one all-gather of it a block, in the
+compute dtype, shared by both gates.  The scan is per channel.
 """
 from __future__ import annotations
 
@@ -30,7 +38,10 @@ from repro_torch.models import common
 from repro_torch.models.common import (apply_stack, compute_dtype, embed,
                                        gelu, lecun_init, randn, remat,
                                        rmsnorm, rmsnorm_init, swiglu_init,
-                                       uniform)
+                                       tp_rules, uniform)
+from repro_torch.parallel import tensor as tp
+from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.tensor import shardwise
 
 Tensor = torch.Tensor
 _C = 8.0  # RG-LRU decay sharpness constant
@@ -45,6 +56,7 @@ _C = 8.0  # RG-LRU decay sharpness constant
 _geglu_init = swiglu_init
 
 
+@shardwise(tp.PARTIAL)
 def _geglu(p: dict, x: Tensor) -> Tensor:
     dt = x.dtype
     return (gelu(x @ p["w_gate"].to(dt)) * (x @ p["w_in"].to(dt))
@@ -84,26 +96,36 @@ def _attn_block_init(gen: torch.Generator, cfg: ModelConfig, run: RunConfig,
             "mlp": _geglu_init(gen, cfg.d_model, cfg.d_ff, device, lead)}
 
 
-def _causal_conv(p: dict, x: Tensor) -> Tensor:
-    """Depthwise causal temporal conv, width cw. x: (B,S,W)."""
+def _own(v: Tensor, s: int, width: int) -> Tensor:
+    """Shard ``s``'s ``width`` channels of a replicated (..., W) leaf (all
+    of it on one device)."""
+    return v[..., s * width:(s + 1) * width]
+
+
+def _causal_conv(p: dict, x: Tensor, s: int = 0) -> Tensor:
+    """Depthwise causal temporal conv, width cw. x: (B,S,W), shard ``s``'s
+    channels of the replicated bias."""
     cw = p["w"].shape[0]
     dt = x.dtype
     pad = F.pad(x, (0, 0, cw - 1, 0))
     out = sum(pad[:, i:i + x.shape[1], :] * p["w"][i].to(dt)
               for i in range(cw))
-    return out + p["b"].to(dt)
+    return out + _own(p["b"], s, x.shape[-1]).to(dt)
 
 
-def _lru_coeffs(p: dict, xc: Tensor) -> tuple[Tensor, Tensor]:
+def _lru_coeffs(p: dict, xc: Tensor, xc_all: Optional[Tensor] = None,
+                s: int = 0) -> tuple[Tensor, Tensor]:
     """a_t and b_t of the diagonal recurrence h_t = a_t h_{t-1} + b_t, in
-    float32."""
+    float32, for shard ``s``'s channels ``xc`` of the conv output (the
+    gates read all of it, ``xc_all``; by default ``xc``)."""
     x32 = xc.to(torch.float32)
+    g32 = x32 if xc_all is None else xc_all.to(torch.float32)
     # bf16 gate weights go up to float32, as JAX's promotion takes them
-    r = torch.sigmoid(x32 @ p["rec_gate"]["w"].to(torch.float32)
+    r = torch.sigmoid(g32 @ p["rec_gate"]["w"].to(torch.float32)
                       + p["rec_gate"]["b"])
-    i = torch.sigmoid(x32 @ p["in_gate"]["w"].to(torch.float32)
+    i = torch.sigmoid(g32 @ p["in_gate"]["w"].to(torch.float32)
                       + p["in_gate"]["b"])
-    log_a = -_C * F.softplus(p["alpha"]) * r
+    log_a = -_C * F.softplus(_own(p["alpha"], s, xc.shape[-1])) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) \
         * (i * x32)
@@ -130,28 +152,40 @@ def linear_scan(a: Tensor, b: Tensor, dim: int = 1) -> tuple[Tensor, Tensor]:
 
 
 def _rec_block(p: dict, cfg: ModelConfig, x: Tensor) -> Tensor:
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    dt = x.dtype
-    gate = gelu(h @ p["w_gate_branch"].to(dt))
-    u = h @ p["w_x"].to(dt)
-    u = _causal_conv(p["conv"], u)
-    a, b = _lru_coeffs(p["lru"], u)
-    _, hseq = linear_scan(a, b)
-    y = (gate * hseq.to(dt)) @ p["lru_out"].to(dt)
-    x = x + y
+    h = tp.whole(rmsnorm(p["ln1"], x, cfg.norm_eps))
+    xc = tp.each(_rec_conv, p, h, layout=h.ndim - 1, indexed=True)
+    y = tp.each(_rec_mix, p, h, xc, tp.whole(xc), layout=tp.PARTIAL,
+                indexed=True)
+    x = x + constrain(y, "act_btd")
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + _geglu(p["mlp"], h)
+    return x + constrain(_geglu(p["mlp"], tp.whole(h)), "act_btd")
+
+
+def _rec_conv(s: int, p: dict, h: Tensor) -> Tensor:
+    """Shard ``s``'s channels of the causal conv of ``h @ w_x``."""
+    return _causal_conv(p["conv"], h @ p["w_x"].to(h.dtype), s)
+
+
+def _rec_mix(s: int, p: dict, h: Tensor, xc: Tensor,
+             xc_all: Tensor) -> Tensor:
+    """Shard ``s``'s channels of the recurrence, gated, through its rows
+    of ``lru_out``."""
+    dt = h.dtype
+    gate = gelu(h @ p["w_gate_branch"].to(dt))
+    a, b = _lru_coeffs(p["lru"], xc, xc_all, s)
+    _, hseq = linear_scan(a, b)
+    return (gate * hseq.to(dt)) @ p["lru_out"].to(dt)
 
 
 def _attn_block(p: dict, cfg: ModelConfig, x: Tensor,
                 positions: Tensor) -> Tensor:
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    a = attn_mod.full_attention(p["attn"], h, positions=positions,
+    a = attn_mod.full_attention(p["attn"], tp.whole(h), positions=positions,
                                 theta=cfg.rope_theta, causal=True,
                                 window=cfg.window)
-    x = x + a
+    x = x + constrain(a, "act_btd")
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + _geglu(p["mlp"], h)
+    return x + constrain(_geglu(p["mlp"], tp.whole(h)), "act_btd")
 
 
 # ---------------------------------------------------------------------------
@@ -185,43 +219,53 @@ def init_params(cfg: ModelConfig, run: RunConfig, generator: torch.Generator,
 
 
 def _logits(params: dict, cfg: ModelConfig, run: RunConfig, x: Tensor) -> Tensor:
-    logits = x @ params["unembed"]["w"].to(x.dtype)
-    if cfg.padded_vocab(run.tp) != cfg.vocab:
-        keep = torch.arange(logits.shape[-1], device=x.device) < cfg.vocab
-        logits = logits + torch.where(keep, 0.0, -1e30).to(x.dtype)
-    return logits
+    return common.lm_head(x, params["unembed"]["w"], cfg.vocab,
+                          cfg.padded_vocab(run.tp))
 
 
 def forward(params: dict, cfg: ModelConfig, run: RunConfig, tokens: Tensor,
             return_hidden: bool = False) -> Tensor:
     """tokens (B, S) -> logits (B, S, padded_vocab), or with
-    ``return_hidden`` the final normed hidden states (B, S, d_model)."""
-    b, s = tokens.shape
-    x = embed(params["embed"], tokens).to(compute_dtype(run))
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device)[None].expand(b, s)
+    ``return_hidden`` the final normed hidden states (B, S, d_model).  From
+    params as ``Shards`` the result is gathered onto the first shard's
+    device."""
+    return tp.gather(_forward(params, cfg, run, tokens, return_hidden))
 
-    def body(h, tp):
-        h = _rec_block(tp["rec1"], cfg, h)
-        h = _rec_block(tp["rec2"], cfg, h)
-        return _attn_block(tp["attn_layer"], cfg, h, positions)
 
-    # remat wraps each triple, not the tail, as in the JAX package
-    x = apply_stack(remat(body, run), x, params["triples"])
-    if "tail" in params:
-        x = apply_stack(lambda h, tp: _rec_block(tp, cfg, h), x,
-                        params["tail"])
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if return_hidden:
-        return x
-    return _logits(params, cfg, run, x)
+def _forward(params: dict, cfg: ModelConfig, run: RunConfig, tokens: Tensor,
+             return_hidden: bool = False) -> Tensor:
+    """``forward`` without the gather: under tensor parallelism the logits
+    split over the vocab."""
+    with tp_rules(params, run):
+        b, s = tokens.shape
+        x = embed(params["embed"], tokens).to(compute_dtype(run))
+        x = constrain(x, "act_btd")
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(b, s)
+
+        def body(h, tl):
+            h = _rec_block(tl["rec1"], cfg, h)
+            h = _rec_block(tl["rec2"], cfg, h)
+            return _attn_block(tl["attn_layer"], cfg, h, positions)
+
+        # remat wraps each triple, not the tail, as in the JAX package
+        x = apply_stack(remat(body, run), x, params["triples"])
+        if _n_triples_tail(cfg)[1]:
+            x = apply_stack(lambda h, tl: _rec_block(tl, cfg, h), x,
+                            params["tail"])
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        if return_hidden:
+            return constrain(x, "act_btd")
+        return constrain(_logits(params, cfg, run, x), "logits")
 
 
 def train_loss(params: dict, cfg: ModelConfig, run: RunConfig,
                batch: dict) -> Tensor:
-    """Mean next-token CE of ``batch``; chunked with ``run.ce_chunk``."""
-    return common.train_loss(forward, params, cfg, run, batch,
-                             params["unembed"]["w"])
+    """Mean next-token CE of ``batch``; chunked with ``run.ce_chunk``;
+    vocab-parallel under tensor parallelism."""
+    with tp_rules(params, run):
+        return common.train_loss(_forward, params, cfg, run, batch,
+                                 params["unembed"]["w"])
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +294,7 @@ def _zero_rec_state(cfg: ModelConfig, batch: int, dt, device,
 
 def init_decode_state(params: dict, cfg: ModelConfig, run: RunConfig,
                       batch: int, max_len: int) -> DecodeState:
+    common.refuse_sharded_decode(cfg, params)
     n_triples, n_tail = _n_triples_tail(cfg)
     dt = compute_dtype(run)
     device = params["embed"]["w"].device
@@ -292,22 +337,23 @@ def decode_step(params: dict, cfg: ModelConfig, run: RunConfig, token: Tensor,
     """token (B, 1) int -> (logits (B, 1, V), new state).  The recurrent
     states and the ring-buffer caches are updated in place; the returned
     state shares their tensors."""
+    common.refuse_sharded_decode(cfg, params)
     x = embed(params["embed"], token).to(compute_dtype(run))
     tr = state.triples
     cache = tr["attn"]
 
     def body(h, sl):
-        tp = sl["p"]
-        h = _rec_decode(tp["rec1"], cfg, h, RecState(sl["c1"], sl["h1"]))
-        h = _rec_decode(tp["rec2"], cfg, h, RecState(sl["c2"], sl["h2"]))
-        z = rmsnorm(tp["attn_layer"]["ln1"], h, cfg.norm_eps)
+        tl = sl["p"]
+        h = _rec_decode(tl["rec1"], cfg, h, RecState(sl["c1"], sl["h1"]))
+        h = _rec_decode(tl["rec2"], cfg, h, RecState(sl["c2"], sl["h2"]))
+        z = rmsnorm(tl["attn_layer"]["ln1"], h, cfg.norm_eps)
         layer_cache = attn_mod.KVCache(k=sl["k"], v=sl["v"], pos=cache.pos,
                                        window=cache.window)
-        a, _ = attn_mod.decode_attention(tp["attn_layer"]["attn"], z,
+        a, _ = attn_mod.decode_attention(tl["attn_layer"]["attn"], z,
                                          layer_cache, theta=cfg.rope_theta)
         h = h + a
-        z = rmsnorm(tp["attn_layer"]["ln2"], h, cfg.norm_eps)
-        return h + _geglu(tp["attn_layer"]["mlp"], z)
+        z = rmsnorm(tl["attn_layer"]["ln2"], h, cfg.norm_eps)
+        return h + _geglu(tl["attn_layer"]["mlp"], z)
 
     x = apply_stack(body, x, {
         "p": params["triples"], "c1": tr["rec1"].conv_buf, "h1": tr["rec1"].h,

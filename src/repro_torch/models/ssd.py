@@ -6,6 +6,17 @@ with per-head scalar decay A.  Prefill uses the chunked form through the
 ``ssd_ref`` is the model's own oracle, the chunked plain version.
 
 Decode is a single state update: h = exp(A dt) h + B (dt x); y = C.h + D x.
+
+Tensor parallelism splits the heads.  JAX cuts the packed ``in_proj``
+(``[z | x | B | C | dt]``) and ``conv_w`` (``[x | B | C]``) in contiguous
+pieces along their last dim, which do not fall on head boundaries, and the
+one group's B and C belong to every head: each block all-gathers the two
+weights and each shard takes its heads' columns of z, x and dt and all of B
+and C (``tensor.gather_pick``), and its channels of the replicated
+``conv_b``.  The scan runs on the shard's heads; the gated RMSNorm spans
+all of ``d_inner``, so its mean of squares is summed across the shards
+(``common.rmsnorm_over_shards``); ``out_proj``, split by row, gives a
+partial sum that the block's ``constrain`` reduces.
 """
 from __future__ import annotations
 
@@ -19,7 +30,10 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import common
 from repro_torch.models.common import (apply_stack, compute_dtype, embed,
                                        lecun_init, randn, remat, rmsnorm,
-                                       rmsnorm_init, uniform)
+                                       rmsnorm_init, rmsnorm_over_shards,
+                                       tp_rules, uniform)
+from repro_torch.parallel import tensor as tp
+from repro_torch.parallel.sharding import constrain
 
 Tensor = torch.Tensor
 
@@ -54,9 +68,12 @@ def ssd_decode_step(h: Tensor, x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor,
 # block
 # ---------------------------------------------------------------------------
 
-def _split_proj(cfg: ModelConfig, proj: Tensor):
+def _split_proj(cfg: ModelConfig, proj: Tensor, heads: int):
+    """z, x, B, C, dt of the projection ``[z | x | B | C | dt]`` of
+    ``heads`` heads: the whole one, or a shard's (its heads' z, x and dt;
+    all of B and C)."""
     dm = _dims(cfg)
-    di, gn = dm["d_inner"], dm["G"] * dm["N"]
+    di, gn = heads * dm["P"], dm["G"] * dm["N"]
     z = proj[..., :di]
     xin = proj[..., di:2 * di]
     b = proj[..., 2 * di:2 * di + gn]
@@ -65,38 +82,83 @@ def _split_proj(cfg: ModelConfig, proj: Tensor):
     return z, xin, b, c, dt
 
 
-def _gated_out(p: dict, cfg: ModelConfig, x: Tensor, y: Tensor,
-               xs: Tensor, z: Tensor) -> Tensor:
-    """y + D x, gated rmsnorm with silu(z), out_proj, residual."""
-    di = _dims(cfg)["d_inner"]
-    y = y + xs * p["ssd"]["D"].to(x.dtype)[:, None]
-    y = y.reshape(*x.shape[:-1], di)
-    y = rmsnorm({"scale": p["ssd"]["norm_scale"]}, y * F.silu(z), cfg.norm_eps)
-    return x + y @ p["ssd"]["out_proj"].to(x.dtype)
+def _columns(w: Tensor, spans) -> Tensor:
+    """The column ranges ``spans`` of ``w``'s last dim, joined in order."""
+    return torch.cat([w[..., a:b] for a, b in spans], dim=-1)
+
+
+def _proj_spans(cfg: ModelConfig, s: int, n: int) -> list:
+    """Shard ``s`` of ``n``'s columns of the whole ``in_proj``: its heads'
+    z and x, all of B and C, its heads' dt."""
+    dm = _dims(cfg)
+    di, gn, h = dm["d_inner"], dm["G"] * dm["N"], dm["H"]
+    c, hc = di // n, h // n
+    return [(s * c, (s + 1) * c), (di + s * c, di + (s + 1) * c),
+            (2 * di, 2 * di + 2 * gn),
+            (2 * di + 2 * gn + s * hc, 2 * di + 2 * gn + (s + 1) * hc)]
+
+
+def _conv_spans(cfg: ModelConfig, s: int, n: int) -> list:
+    """Shard ``s`` of ``n``'s channels of the conv over ``[x | B | C]``."""
+    dm = _dims(cfg)
+    di, gn = dm["d_inner"], dm["G"] * dm["N"]
+    c = di // n
+    return [(s * c, (s + 1) * c), (di, di + 2 * gn)]
+
+
+def _gated_out(p: dict, cfg: ModelConfig, x: Tensor, v: Tensor) -> Tensor:
+    """The gated value's rmsnorm over all of d_inner, out_proj,
+    residual."""
+    v = rmsnorm_over_shards({"scale": p["ssd"]["norm_scale"]}, v,
+                            cfg.norm_eps)
+    out = tp.each(lambda v, w: v @ w.to(v.dtype), v, p["ssd"]["out_proj"],
+                  layout=tp.PARTIAL)
+    return x + constrain(out, "act_btd")
+
+
+def _gate(ssd: dict, y: Tensor, xs: Tensor, z: Tensor) -> Tensor:
+    """(y + D x) * silu(z), (..., the heads' d_inner)."""
+    y = y + xs * ssd["D"].to(y.dtype)[:, None]
+    return y.reshape(z.shape) * F.silu(z)
 
 
 def _block_forward(p: dict, cfg: ModelConfig, x: Tensor) -> Tensor:
+    h = tp.whole(rmsnorm(p["ln"], x, cfg.norm_eps))
+    ssd = p["ssd"]
+    w_in = tp.gather_pick(ssd["in_proj"], lambda s, n, w: _columns(
+        w, _proj_spans(cfg, s, n)))
+    conv_w = tp.gather_pick(ssd["conv_w"], lambda s, n, w: _columns(
+        w, _conv_spans(cfg, s, n)))
+    v = tp.each(_mixer, ssd, cfg, h, w_in, conv_w, layout=h.ndim - 1,
+                indexed=True)
+    return _gated_out(p, cfg, x, v)
+
+
+def _mixer(s: int, ssd: dict, cfg: ModelConfig, h: Tensor, w_in: Tensor,
+           conv_w: Tensor):
+    """One shard's heads (all of them on one device): the projection, the
+    causal conv + silu over [x, B, C], the scan, the gate: (y + D x) *
+    silu(z) of its d_inner channels."""
     dm = _dims(cfg)
-    dt_ = x.dtype
-    bsz, s = x.shape[0], x.shape[1]
-    h = rmsnorm(p["ln"], x, cfg.norm_eps)
-    proj = h @ p["ssd"]["in_proj"].to(dt_)
-    z, xin, b, c, dtp = _split_proj(cfg, proj)
-    # causal conv + silu over [x, B, C]
+    dt_ = h.dtype
+    bsz, s_len = h.shape[0], h.shape[1]
+    heads = ssd["A_log"].shape[-1]
+    proj = h @ w_in.to(dt_)
+    z, xin, b, c, dtp = _split_proj(cfg, proj, heads)
     conv_in = torch.cat([xin, b, c], dim=-1)
+    conv_b = _columns(ssd["conv_b"], _conv_spans(cfg, s, dm["H"] // heads))
     cw = cfg.conv_width
     padded = F.pad(conv_in, (0, 0, cw - 1, 0))
-    conv = sum(padded[:, i:i + s] * p["ssd"]["conv_w"][i].to(dt_)
-               for i in range(cw)) + p["ssd"]["conv_b"].to(dt_)
+    conv = sum(padded[:, i:i + s_len] * conv_w[i].to(dt_)
+               for i in range(cw)) + conv_b.to(dt_)
     conv = F.silu(conv)
-    di, gn = dm["d_inner"], dm["G"] * dm["N"]
-    xs = conv[..., :di].reshape(bsz, s, dm["H"], dm["P"]).contiguous()
-    bs = conv[..., di:di + gn].reshape(bsz, s, dm["G"], dm["N"]).contiguous()
-    cs = conv[..., di + gn:].reshape(bsz, s, dm["G"], dm["N"]).contiguous()
-    dt_act = F.softplus(dtp.to(torch.float32) + p["ssd"]["dt_bias"]).contiguous()
-    y, _ = ssd_ops.ssd(xs, dt_act, p["ssd"]["A_log"], bs, cs,
-                       chunk=cfg.ssm_chunk)
-    return _gated_out(p, cfg, x, y, xs, z)
+    di, gn = xin.shape[-1], dm["G"] * dm["N"]
+    xs = conv[..., :di].reshape(bsz, s_len, heads, dm["P"]).contiguous()
+    bs = conv[..., di:di + gn].reshape(bsz, s_len, dm["G"], dm["N"]).contiguous()
+    cs = conv[..., di + gn:].reshape(bsz, s_len, dm["G"], dm["N"]).contiguous()
+    dt_act = F.softplus(dtp.to(torch.float32) + ssd["dt_bias"]).contiguous()
+    y, _ = ssd_ops.ssd(xs, dt_act, ssd["A_log"], bs, cs, chunk=cfg.ssm_chunk)
+    return _gate(ssd, y, xs, z)
 
 
 # ---------------------------------------------------------------------------
@@ -133,31 +195,41 @@ def init_params(cfg: ModelConfig, run: RunConfig, generator: torch.Generator,
 
 
 def _logits(params: dict, cfg: ModelConfig, run: RunConfig, x: Tensor) -> Tensor:
-    logits = x @ params["unembed"]["w"].to(x.dtype)
-    if cfg.padded_vocab(run.tp) != cfg.vocab:
-        keep = torch.arange(logits.shape[-1], device=x.device) < cfg.vocab
-        logits = logits + torch.where(keep, 0.0, -1e30).to(x.dtype)
-    return logits
+    return common.lm_head(x, params["unembed"]["w"], cfg.vocab,
+                          cfg.padded_vocab(run.tp))
 
 
 def forward(params: dict, cfg: ModelConfig, run: RunConfig,
             tokens: Tensor, return_hidden: bool = False) -> Tensor:
     """tokens (B, S) -> logits (B, S, padded_vocab), or with
-    ``return_hidden`` the final normed hidden states (B, S, d_model)."""
-    x = embed(params["embed"], tokens).to(compute_dtype(run))
-    x = apply_stack(remat(lambda h, lp: _block_forward(lp, cfg, h), run), x,
-                    params["layers"])
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if return_hidden:
-        return x
-    return _logits(params, cfg, run, x)
+    ``return_hidden`` the final normed hidden states (B, S, d_model).  From
+    params as ``Shards`` the result is gathered onto the first shard's
+    device."""
+    return tp.gather(_forward(params, cfg, run, tokens, return_hidden))
+
+
+def _forward(params: dict, cfg: ModelConfig, run: RunConfig, tokens: Tensor,
+             return_hidden: bool = False) -> Tensor:
+    """``forward`` without the gather: under tensor parallelism the logits
+    split over the vocab."""
+    with tp_rules(params, run):
+        x = embed(params["embed"], tokens).to(compute_dtype(run))
+        x = constrain(x, "act_btd")
+        x = apply_stack(remat(lambda h, lp: _block_forward(lp, cfg, h), run),
+                        x, params["layers"])
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        if return_hidden:
+            return constrain(x, "act_btd")
+        return constrain(_logits(params, cfg, run, x), "logits")
 
 
 def train_loss(params: dict, cfg: ModelConfig, run: RunConfig,
                batch: dict) -> Tensor:
-    """Mean next-token CE of ``batch``; chunked with ``run.ce_chunk``."""
-    return common.train_loss(forward, params, cfg, run, batch,
-                             params["unembed"]["w"])
+    """Mean next-token CE of ``batch``; chunked with ``run.ce_chunk``;
+    vocab-parallel under tensor parallelism."""
+    with tp_rules(params, run):
+        return common.train_loss(_forward, params, cfg, run, batch,
+                                 params["unembed"]["w"])
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +249,7 @@ class DecodeState(NamedTuple):
 def init_decode_state(params: dict, cfg: ModelConfig, run: RunConfig,
                       batch: int, max_len: int) -> DecodeState:
     del max_len
+    common.refuse_sharded_decode(cfg, params)
     dm = _dims(cfg)
     device = params["embed"]["w"].device
     n = cfg.n_layers
@@ -192,6 +265,7 @@ def decode_step(params: dict, cfg: ModelConfig, run: RunConfig, token: Tensor,
                 state: DecodeState) -> tuple[Tensor, DecodeState]:
     """token (B, 1) int -> (logits (B, 1, V), new state).  The layer states
     are updated in place; the returned state shares their tensors."""
+    common.refuse_sharded_decode(cfg, params)
     dm = _dims(cfg)
     dt = compute_dtype(run)
     x = embed(params["embed"], token).to(dt)
@@ -200,7 +274,7 @@ def decode_step(params: dict, cfg: ModelConfig, run: RunConfig, token: Tensor,
         lp, conv_buf, hs = sl["p"], sl["conv_buf"], sl["h"]
         z0 = rmsnorm(lp["ln"], h, cfg.norm_eps)
         proj = z0 @ lp["ssd"]["in_proj"].to(dt)
-        z, xin, b, c, dtp = _split_proj(cfg, proj)
+        z, xin, b, c, dtp = _split_proj(cfg, proj, dm["H"])
         conv_in = torch.cat([xin, b, c], dim=-1)[:, 0]           # (B, conv_ch)
         hist = torch.cat([conv_buf, conv_in[:, None]], dim=1)
         conv = sum(hist[:, i] * lp["ssd"]["conv_w"][i].to(dt)
@@ -214,8 +288,8 @@ def decode_step(params: dict, cfg: ModelConfig, run: RunConfig, token: Tensor,
         y, h_new = ssd_decode_step(hs, xs, dt_act, lp["ssd"]["A_log"], bs, cs)
         conv_buf.copy_(hist[:, 1:])
         hs.copy_(h_new)
-        return _gated_out(lp, cfg, h, y.reshape(-1, 1, dm["H"], dm["P"]),
-                          xs[:, None], z)
+        return _gated_out(lp, cfg, h, _gate(
+            lp["ssd"], y.reshape(-1, 1, dm["H"], dm["P"]), xs[:, None], z))
 
     st = state.layers
     x = apply_stack(body, x, {"p": params["layers"], "conv_buf": st.conv_buf,

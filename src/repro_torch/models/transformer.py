@@ -11,17 +11,18 @@ vision embeddings.  Decode caches are stacked along the same axes; the
 VLM's cross K/V are computed once, in ``init_decode_state``, and kept in
 ``DecodeState.vision_kv``.
 
-Tensor parallelism (the dense and moe families): ``forward`` and
-``train_loss`` take the params of each ``"model"`` shard as a
-``parallel.tensor.Shards`` (``sharding.shard_params``' pieces) and run the
-JAX package's model code on it, with ``constrain`` at the JAX package's
-call sites deciding each boundary's collective under
+Tensor parallelism: ``forward`` and ``train_loss`` take the params of each
+``"model"`` shard as a ``parallel.tensor.Shards`` (``sharding.shard_params``'
+pieces) and run the JAX package's model code on it, with ``constrain`` at
+the JAX package's call sites deciding each boundary's collective under
 ``activation_rules(False, sp=run.sp)`` (or the rules a caller installed).
-The logits stay vocab-split into the loss; ``forward`` gathers them.
+The VLM's cross layers run on each shard's heads over the vision
+embeddings, which every shard projects with its copy of ``vision_proj``;
+the replicated tanh gates scale the reduced outputs.  The logits stay
+vocab-split into the loss; ``forward`` gathers them.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -33,11 +34,11 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (apply_stack, compute_dtype, embed,
                                        layer, lecun_init, randn, remat,
                                        rmsnorm, rmsnorm_init, swiglu,
-                                       swiglu_init)
+                                       swiglu_init, tp_rules)
 from repro_torch.models.registry import check_tensor_parallel
-from repro_torch.parallel import sharding
 from repro_torch.parallel import tensor as tp
 from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.tensor import shardwise
 
 Tensor = torch.Tensor
 
@@ -46,11 +47,7 @@ FAMILIES = ("dense", "moe", "vlm")
 
 def _check_decode(cfg: ModelConfig, params) -> None:
     _check_family(cfg)
-    if isinstance(params, tp.Shards):
-        raise NotImplementedError(f"{cfg.arch}: decoding from params split "
-                                  f"over a model axis needs sharded decode "
-                                  f"state, which waits for its slice "
-                                  f"(ROADMAP.md §1)")
+    common.refuse_sharded_decode(cfg, params)
 
 
 def _check_family(cfg: ModelConfig, params=None) -> None:
@@ -111,16 +108,22 @@ def _self_layer(p: dict, cfg: ModelConfig, run: RunConfig, x: Tensor,
     return x + constrain(_apply_ffn(p, cfg, run, tp.whole(h)), "act_btd")
 
 
+@shardwise()
+def _tanh_gate(gate: Tensor, a: Tensor) -> Tensor:
+    return torch.tanh(gate).to(a.dtype) * a
+
+
 def _cross_layer(p: dict, cfg: ModelConfig, run: RunConfig, x: Tensor,
-                 vision: Tensor) -> Tensor:
+                 vision: Tensor, positions: Tensor) -> Tensor:
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    dummy_pos = torch.zeros(x.shape[:2], dtype=torch.int32, device=x.device)
-    a = attn_mod.full_attention(p["attn"], h, positions=dummy_pos,
+    # no rope on cross-attention: the positions are not read
+    a = attn_mod.full_attention(p["attn"], tp.whole(h),
+                                positions=torch.zeros_like(positions),
                                 theta=cfg.rope_theta, x_kv=vision)
-    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * constrain(a, "act_btd")
+    x = x + _tanh_gate(p["gate_attn"], constrain(a, "act_btd"))
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * \
-        constrain(_apply_ffn(p, cfg, run, h), "act_btd")
+    return x + _tanh_gate(p["gate_mlp"], constrain(
+        _apply_ffn(p, cfg, run, tp.whole(h)), "act_btd"))
 
 
 # ---------------------------------------------------------------------------
@@ -179,13 +182,15 @@ def _cast(node, dtype):
 
 def _vision(params: dict, run: RunConfig, vision_embeds: Optional[Tensor]
             ) -> Tensor:
-    """The vision embeddings (B, N_vision, D) projected into the decoder."""
+    """The vision embeddings (B, N_vision, D) projected into the decoder
+    (by each shard with its copy of the replicated ``vision_proj``)."""
     if vision_embeds is None:
         raise ValueError("the vlm family needs vision_embeds (B, "
                          "n_vision_tokens, d_model): the frontend's patch "
                          "embeddings")
     dt = compute_dtype(run)
-    return vision_embeds.to(dt) @ params["vision_proj"]["w"].to(dt)
+    return tp.each(lambda v, w: v.to(dt) @ w.to(dt), vision_embeds,
+                   params["vision_proj"]["w"], layout=tp.REPLICATED)
 
 
 def forward(params: dict, cfg: ModelConfig, run: RunConfig, tokens: Tensor,
@@ -200,16 +205,6 @@ def forward(params: dict, cfg: ModelConfig, run: RunConfig, tokens: Tensor,
                               return_hidden))
 
 
-def _tp_rules(params, run: RunConfig):
-    """The activation rules a tensor-parallel forward runs under: the
-    caller's, or ``activation_rules(False, sp=run.sp)``; none on one
-    device."""
-    if not isinstance(params, tp.Shards) or sharding.active_rules():
-        return contextlib.nullcontext()
-    return sharding.activation_sharding(
-        sharding.activation_rules(False, sp=run.sp))
-
-
 def _forward(params: dict, cfg: ModelConfig, run: RunConfig, tokens: Tensor,
              vision_embeds: Optional[Tensor] = None,
              return_hidden: bool = False) -> Tensor:
@@ -217,7 +212,7 @@ def _forward(params: dict, cfg: ModelConfig, run: RunConfig, tokens: Tensor,
     split over the vocab (the hidden states as ``act_btd`` places
     them)."""
     _check_family(cfg, params)
-    with _tp_rules(params, run):
+    with tp_rules(params, run):
         b, s = tokens.shape
         x = embed(params["embed"], tokens).to(compute_dtype(run))
         x = constrain(x, "act_btd")
@@ -231,7 +226,8 @@ def _forward(params: dict, cfg: ModelConfig, run: RunConfig, tokens: Tensor,
 
             def group_body(h, gp):
                 h = apply_stack(self_body, h, gp["selfs"])
-                return _cross_layer(gp["cross"], cfg, run, h, vision)
+                return _cross_layer(gp["cross"], cfg, run, h, vision,
+                                    positions)
             x = apply_stack(group_body, x, params["groups"])
         else:
             x = apply_stack(self_body, x, params["layers"])
@@ -260,7 +256,7 @@ def train_loss(params: dict, cfg: ModelConfig, run: RunConfig,
     family); chunked with ``run.ce_chunk``.  Under tensor parallelism the
     CE is vocab-parallel (no shard holds a whole row of logits), under the
     activation rules of ``forward``."""
-    with _tp_rules(params, run):
+    with tp_rules(params, run):
         return common.train_loss(_forward, params, cfg, run, batch,
                                  _head_w(params, cfg))
 

@@ -19,6 +19,14 @@ path.  Decode attends the cross K/V, computed once in
 
 Layer params are stacked along a leading layer axis (``enc_layers``,
 ``dec_layers``), as in the JAX package; ``apply_stack`` loops over it.
+
+Tensor parallelism splits the heads of the encoder's, the decoder's and the
+cross attention (their biases with them), the MLPs' ``w_in`` by column and
+``w_out`` by row, and the vocab.  The frames go whole to every shard; the
+replicated ``b_in`` is added by columns and ``b_out`` once
+(``common.gelu_mlp``); the position table, which the rules cut by rows,
+adds each row to the vocab-parallel embedding's partial sum from the shard
+that holds it; the tied unembedding is the vocab-split head.
 """
 from __future__ import annotations
 
@@ -28,12 +36,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import common
 from repro_torch.models.common import (apply_stack, compute_dtype,
                                        cross_entropy_loss, embed,
                                        embedding_init, gelu_mlp,
                                        gelu_mlp_init, layer, layernorm,
                                        layernorm_init, randn, remat,
-                                       sincos_positions)
+                                       sincos_positions, tp_rules)
+from repro_torch.parallel import tensor as tp
+from repro_torch.parallel.sharding import constrain
 
 Tensor = torch.Tensor
 
@@ -45,16 +56,21 @@ def _attn_init(gen, cfg: ModelConfig, run: RunConfig, device, lead) -> dict:
                               lead=lead)
 
 
+def _pos_rows(cfg: ModelConfig) -> int:
+    """Rows of the learned decoder position table."""
+    return 4096 if cfg.max_seq > 4096 else cfg.max_seq
+
+
 def init_params(cfg: ModelConfig, run: RunConfig, generator: torch.Generator,
                 device) -> dict:
     """Seeded random params with the JAX init's shapes and scales (not its
     numbers), drawn on the generator's device and moved to ``device``."""
     d, ne, nd = cfg.d_model, (cfg.n_enc_layers,), (cfg.n_layers,)
-    pos_rows = 4096 if cfg.max_seq > 4096 else cfg.max_seq
     return {
         "embed": embedding_init(generator, cfg.padded_vocab(run.tp), d,
                                 device),
-        "pos_embed": {"w": randn(generator, (pos_rows, d), device) * 0.02},
+        "pos_embed": {"w": randn(generator, (_pos_rows(cfg), d), device)
+                      * 0.02},
         "enc_layers": {"ln1": layernorm_init(d, device, ne),
                        "ln2": layernorm_init(d, device, ne),
                        "attn": _attn_init(generator, cfg, run, device, ne),
@@ -75,34 +91,41 @@ def init_params(cfg: ModelConfig, run: RunConfig, generator: torch.Generator,
 def encode(params: dict, cfg: ModelConfig, run: RunConfig,
            frames: Tensor) -> Tensor:
     """frames: (B, F, D) precomputed frame embeddings (frontend stub) ->
-    the encoder output (B, F, D) in the compute dtype."""
-    dt = compute_dtype(run)
-    x = frames.to(dt) + sincos_positions(frames.shape[1], cfg.d_model,
-                                         frames.device).to(dt)[None]
-    dummy_pos = torch.zeros(frames.shape[:2], dtype=torch.int32,
-                            device=frames.device)
+    the encoder output (B, F, D) in the compute dtype (as ``act_btd``
+    places it, under tensor parallelism)."""
+    with tp_rules(params, run):
+        dt = compute_dtype(run)
+        x = frames.to(dt) + sincos_positions(frames.shape[1], cfg.d_model,
+                                             frames.device).to(dt)[None]
+        x = constrain(tp.replicate(x, params), "act_btd")
+        dummy_pos = torch.zeros(frames.shape[:2], dtype=torch.int32,
+                                device=frames.device)
 
-    def body(h, lp):
-        z = layernorm(lp["ln1"], h)
-        h = h + attn_mod.full_attention(lp["attn"], z, positions=dummy_pos,
-                                        causal=False, rope=False)
-        z = layernorm(lp["ln2"], h)
-        return h + gelu_mlp(lp["mlp"], z)
+        def body(h, lp):
+            z = layernorm(lp["ln1"], h)
+            a = attn_mod.full_attention(lp["attn"], tp.whole(z),
+                                        positions=dummy_pos, causal=False,
+                                        rope=False)
+            h = h + constrain(a, "act_btd")
+            z = layernorm(lp["ln2"], h)
+            return h + constrain(gelu_mlp(lp["mlp"], tp.whole(z)), "act_btd")
 
-    x = apply_stack(remat(body, run), x, params["enc_layers"])
-    return layernorm(params["enc_final_ln"], x)
+        x = apply_stack(remat(body, run), x, params["enc_layers"])
+        return layernorm(params["enc_final_ln"], x)
 
 
 def _dec_layer(lp: dict, x: Tensor, positions: Tensor,
                enc_out: Tensor) -> Tensor:
     h = layernorm(lp["ln1"], x)
-    x = x + attn_mod.full_attention(lp["attn"], h, positions=positions,
-                                    causal=True, rope=False)
+    a = attn_mod.full_attention(lp["attn"], tp.whole(h), positions=positions,
+                                causal=True, rope=False)
+    x = x + constrain(a, "act_btd")
     h = layernorm(lp["ln2"], x)
-    x = x + attn_mod.full_attention(lp["xattn"], h, positions=positions,
-                                    x_kv=enc_out, rope=False)
+    a = attn_mod.full_attention(lp["xattn"], tp.whole(h), positions=positions,
+                                x_kv=enc_out, rope=False)
+    x = x + constrain(a, "act_btd")
     h = layernorm(lp["ln3"], x)
-    return x + gelu_mlp(lp["mlp"], h)
+    return x + constrain(gelu_mlp(lp["mlp"], tp.whole(h)), "act_btd")
 
 
 def forward(params: dict, cfg: ModelConfig, run: RunConfig, tokens: Tensor,
@@ -111,32 +134,58 @@ def forward(params: dict, cfg: ModelConfig, run: RunConfig, tokens: Tensor,
     -> (B, S, padded_vocab), through the tied unembedding, padded vocab
     columns (``tp`` > 1 only) masked to -1e30.  A decoder longer than the
     learned position table wraps around it (``pos % rows``), as in the JAX
-    package."""
-    dt = compute_dtype(run)
-    enc_out = encode(params, cfg, run, frames)
-    b, s = tokens.shape
-    pos_table = params["pos_embed"]["w"]
-    pos = torch.arange(s, device=tokens.device) % pos_table.shape[0]
-    x = embed(params["embed"], tokens).to(dt) + pos_table[pos].to(dt)[None]
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device)[None].expand(b, s)
-    x = apply_stack(remat(lambda h, lp: _dec_layer(lp, h, positions, enc_out),
-                          run), x, params["dec_layers"])
-    x = layernorm(params["dec_final_ln"], x)
-    logits = x @ params["embed"]["w"].to(dt).T
-    pv = cfg.padded_vocab(run.tp)
-    if pv != cfg.vocab:
-        mask = torch.where(torch.arange(pv, device=x.device) < cfg.vocab,
-                           0.0, -1e30)
-        logits = logits + mask.to(dt)
-    return logits
+    package.  From params as ``Shards`` the logits are gathered onto the
+    first shard's device."""
+    return tp.gather(_forward(params, cfg, run, tokens, frames))
+
+
+def _forward(params: dict, cfg: ModelConfig, run: RunConfig, tokens: Tensor,
+             frames: Tensor) -> Tensor:
+    """``forward`` without the gather: under tensor parallelism the logits
+    split over the vocab."""
+    with tp_rules(params, run):
+        dt = compute_dtype(run)
+        enc_out = tp.whole(encode(params, cfg, run, frames))
+        b, s = tokens.shape
+        rows = _pos_rows(cfg)
+        x = tp.each(_add_positions, embed(params["embed"], tokens).to(dt),
+                    params["pos_embed"]["w"],
+                    torch.arange(s, device=tokens.device) % rows, rows,
+                    indexed=True)
+        x = constrain(x, "act_btd")
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(b, s)
+        x = apply_stack(remat(lambda h, lp: _dec_layer(lp, h, positions,
+                                                       enc_out), run),
+                        x, params["dec_layers"])
+        x = layernorm(params["dec_final_ln"], x)
+        logits = common.lm_head(x, params["embed"]["w"].T, cfg.vocab,
+                                cfg.padded_vocab(run.tp))
+        return constrain(logits, "logits")
+
+
+def _add_positions(s: int, x: Tensor, table: Tensor, pos: Tensor,
+                   rows: int) -> Tensor:
+    """The learned position rows ``pos`` (of ``rows``) added to the
+    embedding.  Under tensor parallelism ``x`` is the vocab-parallel
+    embedding's partial sum and the table is split by rows (the partition
+    rules' ``embed/w$`` matches ``pos_embed/w``): each shard adds the rows
+    it holds."""
+    r = table.shape[0]
+    local = pos - s * r
+    got = table[local.clamp(0, r - 1)].to(x.dtype)
+    if r < rows:
+        inside = (local >= 0) & (local < r)
+        got = torch.where(inside[:, None], got, torch.zeros_like(got))
+    return x + got[None]
 
 
 def train_loss(params: dict, cfg: ModelConfig, run: RunConfig,
                batch: dict) -> Tensor:
     """Mean next-token CE of ``batch`` ({"tokens", "labels", "frames"}) on
-    the full logits; ``run.ce_chunk`` is not read, as in the JAX package."""
-    logits = forward(params, cfg, run, batch["tokens"], batch["frames"])
+    the full logits (vocab-parallel under tensor parallelism);
+    ``run.ce_chunk`` is not read, as in the JAX package."""
+    logits = _forward(params, cfg, run, batch["tokens"], batch["frames"])
     return cross_entropy_loss(logits, batch["labels"], cfg.vocab)
 
 
@@ -155,6 +204,7 @@ def init_decode_state(params: dict, cfg: ModelConfig, run: RunConfig,
                       frames: Tensor) -> DecodeState:
     """Zero self-attention caches, and each decoder layer's cross K/V of the
     encoded ``frames`` (one ``encode``), projected with its ``xattn``."""
+    common.refuse_sharded_decode(cfg, params)
     dt = compute_dtype(run)
     _, hkv = cfg.padded_heads(run.tp)
     enc_out = encode(params, cfg, run, frames)
@@ -175,6 +225,7 @@ def decode_step(params: dict, cfg: ModelConfig, run: RunConfig, token: Tensor,
                 state: DecodeState) -> tuple[Tensor, DecodeState]:
     """token (B, 1) int -> (logits (B, 1, V), new state).  The caches are
     updated in place; the returned state shares their tensors."""
+    common.refuse_sharded_decode(cfg, params)
     dt = compute_dtype(run)
     pos_table = params["pos_embed"]["w"]
     x = embed(params["embed"], token).to(dt) + \

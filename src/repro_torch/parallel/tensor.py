@@ -14,8 +14,11 @@ partial sums where the block's weights are split over the contracted dim
 turns them into what it names: an all-reduce for a replicated activation, a
 reduce-scatter for a sequence-split one (``sp``), nothing for the
 vocab-split logits (``Shards.place``).  :func:`whole` is the all-gather of a
-split block input.  The collectives are ``parallel.collectives``'s, logged
-and differentiable.
+split block input.  Where JAX's contiguous cut of a packed weight does not
+line up with a shard's work (Mamba-2's ``in_proj``), :func:`gather_pick`
+gathers the weight and each shard takes its columns; a norm over a split
+width sums its squares across the shards (:func:`sum_of_squares`).  The
+collectives are ``parallel.collectives``'s, logged and differentiable.
 
 Nothing here holds state: a ``Shards`` is made by the train step or the
 caller that shards the params (``sharding.shard_params``), and a one-device
@@ -212,6 +215,40 @@ def whole(x):
     all-reduce of a partial sum; a tensor or a replicated value as it
     is."""
     return x.place(None) if isinstance(x, Shards) else x
+
+
+def replicate(x: Tensor, like):
+    """The tensor ``x`` whole on every shard of ``like`` (one copy a
+    device), for a block input that no collective makes (whisper's
+    frames); ``x`` itself where ``like`` is not a ``Shards``."""
+    if not isinstance(like, Shards):
+        return x
+    moved: dict = {}
+    return Shards([_pick(x, s, d, moved) for s, d in enumerate(like.devices)],
+                  REPLICATED, like.devices)
+
+
+def gather_pick(w, pick: Callable):
+    """A weight whose last dim the shards hold in contiguous cuts that do
+    not line up with what each shard computes (the packed projections of
+    ``ssd/in_proj`` and ``ssd/conv_w``): one all-gather of the cuts, then
+    shard ``s`` takes ``pick(s, n, whole)``.  The all-gather's backward sums
+    every shard's gradient onto each cut.  A tensor (one device) as it
+    is."""
+    if not isinstance(w, Shards):
+        return w
+    n = len(w.pieces)
+    full = collectives.all_gather(w.pieces, w.ndim - 1, w.devices)
+    return Shards([pick(s, n, f) for s, f in enumerate(full)], None,
+                  w.devices)
+
+
+def sum_of_squares(x: Shards) -> Shards:
+    """The float32 sum of squares of ``x`` over its last dim, which the
+    shards split, as (..., 1) whole on every shard: each shard's own sum,
+    then one all-reduce."""
+    return whole(each(lambda t: torch.square(t.to(torch.float32)).sum(
+        -1, keepdim=True), x, layout=PARTIAL))
 
 
 def gather(x):

@@ -2,10 +2,10 @@
 microbatching and optional compressed gradients (the paper's technique on the
 gradients).
 
-``make_train_step`` builds the step for any ported arch (the dense family and
-SSD).  On CUDA the forward runs through the flash_attention or ssd_scan
-kernel (inside their ``torch.autograd.Function``s, whose backward is the
-plain formula); on the CPU through their plain versions.
+``make_train_step`` builds the step for any arch.  On CUDA the forward runs
+through the flash_attention or ssd_scan kernel (inside their
+``torch.autograd.Function``s, whose backward is the plain formula); on the
+CPU through their plain versions.
 
 The step is functional, as the JAX step is without donation: it returns a
 new ``TrainState`` and leaves the one it was given untouched, so a runner
@@ -29,7 +29,7 @@ Data parallelism runs in one process over a mesh of devices
   ``TrainState`` per shard.
 
 With a ``"model"`` axis above 1 (``RunConfig.tp``) the GSPMD step is also
-tensor-parallel, for the dense and moe families: the params, Adam's moments
+tensor-parallel, for every family: the params, Adam's moments
 and the gradients are ``sharding.Sharded`` pieces cut by
 ``param_partition_specs`` (``shard_train_state``), each data shard's forward
 is the tensor-parallel forward over its row of the mesh
@@ -438,8 +438,7 @@ def _check_tensor_parallel(cfg: ModelConfig, run: RunConfig,
 
 def check_tensor_parallel(cfg: ModelConfig, run: RunConfig) -> None:
     """Raise ``NotImplementedError`` for what ``run.tp`` > 1 does not train
-    yet: a family whose tensor parallelism is not ported, and gradient
-    compression (ROADMAP.md §1)."""
+    yet: gradient compression (ROADMAP.md §1)."""
     registry.check_tensor_parallel(cfg, run.tp)
     if run.tp > 1 and run.gradient_compression != "none":
         raise NotImplementedError(
@@ -538,8 +537,11 @@ def tensor_parallel_value_and_grad(cfg: ModelConfig, run: RunConfig,
             loss = api.train_loss(Shards(trees, None, devs), cfg, run,
                                   _on_device(batch, devs[0]))
             keys = list(own)
-            got = dict(zip(keys, torch.autograd.grad(
-                loss, [own[k] for k in keys])))
+            # a copy that its shard does not read (whisper's b_out beyond
+            # shard 0) has a part of 0
+            got = {k: torch.zeros_like(own[k]) if g is None else g
+                   for k, g in zip(keys, torch.autograd.grad(
+                       loss, [own[k] for k in keys], allow_unused=True))}
             del own, trees
             out = []
             for sh, objs in zip(leaves, held):

@@ -44,7 +44,7 @@ from repro_torch.models import common, registry, transformer
 from repro_torch.parallel import collectives, tensor
 from repro_torch.parallel import sharding as t_shd
 from repro_torch.parallel.tensor import Shards
-from repro_torch.train import loop
+from repro_torch.train import loop, optim
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = [("qwen2-1.5b", 2), ("granite-moe-3b-a800m", 2),
@@ -271,12 +271,14 @@ def test_moe_fallback_splits_each_experts_f():
 
 
 def test_forward_refuses_what_is_not_ported():
-    cfg = registry.reduced_config(get_config("llama-3.2-vision-11b"))
-    fake = Shards([{}, {}], None, ["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        transformer.forward(fake, cfg, RunConfig(tp=2),
-                            torch.zeros(1, 4, dtype=torch.long))
+    """Gradient compression under tensor parallelism and decoding from
+    split params wait for their slices."""
     qwen, run, params = _setup("qwen2-1.5b", 2)
+    mesh = t_mesh.make_mesh((1, 2), ("data", "model"), ["cpu"] * 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        loop.make_train_step(qwen, RunConfig(
+            tp=2, gradient_compression="pca_ef"), optim.adamw(1e-3),
+            mesh=mesh)
     shards = _shards(params, t_mesh.make_mesh((1, 2), ("data", "model"),
                                               ["cpu"] * 2), 2)
     with pytest.raises(NotImplementedError, match="sharded decode state"):

@@ -435,9 +435,13 @@ def test_cli_runs_gradient_compression(tmp_path, mode):
 
 
 def test_cli_refuses_tensor_parallelism_at_parse_time():
-    """Where the family's tensor parallelism is not ported (the ssm
-    family here; ``tests/test_torch_train_tp.py`` has the others)."""
-    out = _cli("--arch", "mamba2-370m", "--tp", "2", timeout=60)
+    """What tensor parallelism does not train yet, before any device is
+    asked for: gradient compression (here with the ssm family, which
+    trains under ``--tp`` without it; ``tests/test_torch_train_tp.py`` has
+    the other refusals)."""
+    out = _cli("--arch", "mamba2-370m", "--tp", "2", "--grad-compression",
+               "pca_ef", timeout=60)
     assert out.returncode == 2
-    assert "tensor parallelism of the ssm family waits" in out.stderr
+    assert "gradient compression under tensor parallelism" in out.stderr
+    assert "waits for its slice" in out.stderr
     assert "ROADMAP.md" in out.stderr

@@ -519,9 +519,14 @@ def test_launcher_trains_moe_with_tp(tmp_path):
     assert "done: steps 0->2" in out.stdout
 
 
+# the ssm and hybrid families train under --tp
+# (tests/test_torch_train_tp_families.py); what they still refuse is
+# gradient compression
 @pytest.mark.parametrize("args,says", [
-    (("--arch", "mamba2-370m", "--tp", "2"), "ssm family"),
-    (("--arch", "recurrentgemma-9b", "--tp", "2"), "hybrid family"),
+    (("--arch", "mamba2-370m", "--tp", "2", "--grad-compression", "gae"),
+     "gradient compression under tensor parallelism"),
+    (("--arch", "recurrentgemma-9b", "--tp", "2", "--grad-compression",
+      "pca_ef"), "gradient compression under tensor parallelism"),
     (("--arch", "qwen2-1.5b", "--tp", "2", "--grad-compression", "pca_ef"),
      "gradient compression under tensor parallelism"),
     (("--arch", "granite-moe-3b-a800m", "--tp", "2", "--device",
