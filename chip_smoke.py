@@ -2653,15 +2653,16 @@ def run_train_path(torch, dev, counters, rows) -> dict:
             for name in ("gae_project", "quantize")}
 
 
-def check_train_kernels(torch, dev, rows) -> None:
-    """gae_project and quantize at (TRAIN_GAE_BLOCKS, 256), the shape a gae
-    train step gives them on mamba2-370m's in_proj, against their plain
-    versions; new rows of the table (``path`` "train")."""
+def check_train_kernels(torch, dev, rows, n=TRAIN_GAE_BLOCKS,
+                        path="train") -> None:
+    """gae_project and quantize at (n, 256), by default (TRAIN_GAE_BLOCKS,
+    256), the shape a gae train step gives them on mamba2-370m's in_proj,
+    against their plain versions; new rows of the table (``path``)."""
     from repro_torch.kernels.gae_project import ops as gp
     from repro_torch.kernels.quantize import ops as qz
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    n, d = TRAIN_GAE_BLOCKS, GAE_BLOCK
+    d = GAE_BLOCK
     r = torch.randn(n, d, generator=gen, device=dev)
     u = torch.linalg.qr(torch.randn(d, d, generator=gen,
                                     device=dev))[0].contiguous()
@@ -2677,8 +2678,8 @@ def check_train_kernels(torch, dev, rows) -> None:
         rows, "gae_project", "src/repro_torch/csrc/gae_project.cu",
         "src/repro/kernels/gae_project/kernel.py:25", err, t[0], t_plain[0],
         t_lib[0], 4 * (n * d + d * d + 2 * n * d), 2 * n * d * d + n * d,
-        path="train")
-    report_kernel("gae_project", (n, d, d, "train"), err, t, t_plain, t_lib,
+        path=path)
+    report_kernel("gae_project", (n, d, d, path), err, t, t_plain, t_lib,
                   b_ms, b_by)
     c = got[0]
     del got, want, r
@@ -2695,8 +2696,8 @@ def check_train_kernels(torch, dev, rows) -> None:
     b_ms, b_by = kernel_row(
         rows, "quantize", "src/repro_torch/csrc/quantize.cu",
         "src/repro/kernels/quantize/kernel.py:25", 0.0, t[0], t_plain[0],
-        None, 16 * n * d, 5 * n * d, path="train")
-    report_kernel("quantize", (n, d, "train"), 0.0, t, t_plain, None, b_ms,
+        None, 16 * n * d, 5 * n * d, path=path)
+    report_kernel("quantize", (n, d, path), 0.0, t, t_plain, None, b_ms,
                   b_by)
     del c
     torch.cuda.empty_cache()
@@ -5102,13 +5103,391 @@ def tp12_whisper(torch, dev, counters) -> dict:
             split["cross"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: gradient compression under tensor parallelism
+# ---------------------------------------------------------------------------
+
+TP13_STEPS = 3                  # (a): step 0 refreshes the pca_ef basis
+TP13_GAE_STEPS = 2              # (b)
+TP13_SHARD = "tp 2 shard"       # the kernel rows at a gae shard's blocks
+
+
+def _spec_leaves(tree) -> list:
+    """The ``PartitionSpec`` leaves of a spec tree (nested dicts), in
+    ``tree_leaves`` order (a spec is a tuple, not a container here)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _spec_leaves(tree[k])]
+    return [tree]
+
+
+def _tp13_reckoning(params, tp: int) -> dict:
+    """What gradient compression under tensor parallelism moves and
+    launches a step, reckoned from the params' shapes and
+    ``param_partition_specs`` alone: a leaf cut on dim d holds runs of
+    shape[d] / tp x prod(shape[d + 1:]) values; where GC_BLOCK does not
+    divide the run, the blocks straddle the pieces and the leaf is
+    all-gathered (one op of the whole leaf in fp32), else each shard
+    compresses its piece.  ``pca_ef``: those all-gathers, and on a refresh
+    step one all-reduce of (256, 256) fp32.  ``gae``: the all-gathers, one
+    all-reduce of the aligned split leaves' stacked (256, 256) fp32
+    covariances, and gae_project and quantize once for each piece of an
+    aligned split leaf and once for every other leaf (the model shards on
+    one device).  ``shard_blocks``: the most blocks of one piece."""
+    from repro_torch.parallel import sharding
+    from repro_torch.train import optim
+
+    specs = _spec_leaves(sharding.param_partition_specs(params, tp_size=tp))
+    gathered, aligned, launches, shard_blocks = [0, 0], 0, 0, 0
+    for x, spec in zip(optim.tree_leaves(params), specs):
+        d = sharding.model_dim(spec)
+        if d is None:
+            launches += 1
+            continue
+        run = x.shape[d] // tp * math.prod(x.shape[d + 1:])
+        if run % GC_BLOCK:
+            gathered[0] += 1
+            gathered[1] += 4 * x.numel()
+            launches += 1
+        else:
+            aligned += 1
+            launches += tp
+            shard_blocks = max(shard_blocks, x.numel() // tp // GC_BLOCK)
+    return {"all_gathers": gathered[0], "gathered_bytes": gathered[1],
+            "aligned_split": aligned, "gae_launches": launches,
+            "shard_blocks": shard_blocks}
+
+
+def _log_sum(*logs) -> dict:
+    """The sum of ``CollectiveLog.summary()`` dicts."""
+    out = {"bytes": {}, "counts": {}}
+    for log in logs:
+        for k in ("bytes", "counts"):
+            for op, v in log[k].items():
+                out[k][op] = out[k].get(op, 0) + v
+    out["total_bytes"] = sum(out["bytes"].values())
+    return out
+
+
+def run_tp_compression_path(torch, dev, counters, rows) -> dict:
+    """Phase 13, gradient compression under tensor parallelism over the
+    card repeated: (a) qwen2-1.5b's train config with ``pca_ef``, 3 TP
+    steps against one card's compressed step; (b) mamba2-370m's fp32 step
+    with ``gae`` at tau GRAD_TAU, and gae_project and quantize at a shard's
+    blocks against their plain versions; its launcher, (c), runs with
+    phase 11's and 12's (``tp_launchers``).  Returns the launches of the
+    kernel rows at the shard's shape."""
+    t0 = time.perf_counter()
+    took = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        got = fn(*args)
+        took[name] = round(time.perf_counter() - t, 1)
+        return got
+
+    timed("a", tp13_qwen_pca_ef, torch, dev)
+    launched = timed("b", tp13_mamba_gae, torch, dev, counters, rows)
+    print(f"tp13: the phase took {time.perf_counter() - t0:.1f} s (seconds a "
+          f"sub-phase: {json.dumps(took)})", flush=True)
+    return {(name, "float32", TP13_SHARD): launched
+            for name in ("gae_project", "quantize")}
+
+
+def _host_leaves(torch, tree) -> list:
+    """Each leaf of ``tree`` (tensors or ``Sharded``) whole, on the host."""
+    from repro_torch.parallel import sharding
+    from repro_torch.train import optim
+
+    if sharding.sharded_leaves(tree):
+        return [x.cpu() for x in _unshard_leaves(torch, tree)]
+    return [x.cpu() for x in optim.tree_leaves(tree)]
+
+
+def tp13_qwen_pca_ef(torch, dev) -> None:
+    """(a) qwen2-1.5b at full width with phase 11 (b)'s train config (bf16
+    compute, remat, ce_chunk) and ``pca_ef``, B 1 x S TRAIN_SEQ, over
+    (1, 2) of the card repeated, TP13_STEPS steps from a seeded state.
+    Gates: the TP compression of the TP gradient (``compress_update`` on
+    its pieces) against one card's ``compress_update`` of the same
+    gradient, whole, leaf by leaf within 1e-5 of the leaf's largest, or
+    within 1.5 x the distance the bf16 gradient's rounding alone puts
+    between one card's compressions (of the one-card and of the TP
+    gradient: a basis from a covariance summed in another order turns
+    with the input's rounding); the compression's logged collectives
+    (the reckoning's all-gathers and, on the refresh step, one all-reduce
+    of (256, 256) fp32); each step's log = the TP gradient's + the
+    compression's; after one step every param within Adam's first-step
+    bound of one card's compressed step (from each side's compressed
+    gradient, clipped at 1.0); ``grad_compression`` equal to one card's;
+    finite losses.  Printed: walls, device busy and idle share of the
+    last step, peaks against one card's."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import collectives, sharding
+    from repro_torch.runtime import grad_compress
+    from repro_torch.train import loop, optim
+
+    cfg = get_config("qwen2-1.5b")
+    run = RunConfig(tp=TP_N, compute_dtype="bfloat16", remat=True,
+                    ce_chunk=TRAIN_CE_CHUNK, gradient_compression="pca_ef")
+    opt = optim.adamw(optim.warmup_cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                                   TRAIN_STEPS),
+                      weight_decay=0.01, max_grad_norm=1.0)
+    corpus = SyntheticCorpus(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1, seed=0))
+    state = loop.init_train_state(torch.Generator(dev).manual_seed(0), cfg,
+                                  run, opt, dev)
+    paths = _tree_paths(state.params)
+    reck = _tp13_reckoning(state.params, TP_N)
+    batch = corpus.batch_at(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    one, m_one = loop.make_train_step(cfg, run, opt)(state, batch)
+    torch.cuda.synchronize()
+    wall_one = time.perf_counter() - t0
+    peak_one = torch.cuda.max_memory_allocated() / 2 ** 30
+    new_one = _host_leaves(torch, one.params)
+    del one
+    _, g = loop.value_and_grad(cfg, run)(state.params, batch)
+    gh_one = _host_leaves(torch, grad_compress.compress_update(
+        g, state.gc)[0])
+    del g
+    mesh = make_mesh((1, TP_N), ("data", "model"), [dev] * TP_N)
+    state = loop.shard_train_state(state, mesh)
+    torch.cuda.empty_cache()
+    collectives.LOG.reset()
+    _, g_tp = loop.tensor_parallel_value_and_grad(cfg, run, mesh)(
+        state.params, batch)
+    log_grads = collectives.LOG.summary()
+    collectives.LOG.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gh_tp = grad_compress.compress_update(g_tp, state.gc)[0]
+    torch.cuda.synchronize()
+    wall_gc = time.perf_counter() - t0
+    log_gc = collectives.LOG.summary()
+    gh_tp = _host_leaves(torch, gh_tp)
+    gathers = {"all-gather": reck["gathered_bytes"]}
+    refresh = {"all-reduce": GC_BLOCK * GC_BLOCK * 4}
+    want_gc = {"bytes": {**gathers, **refresh},
+               "counts": {"all-gather": reck["all_gathers"],
+                          "all-reduce": 1},
+               "total_bytes": reck["gathered_bytes"] + sum(refresh.values())}
+    # one card's compression of the same gradient, whole
+    g_tp = sharding.unshard_params(g_tp)
+    whole_gc = grad_compress.GradCompressionState(
+        basis=sharding.unshard_params(state.gc.basis),
+        error=optim.tree_map(torch.zeros_like, g_tp), step=state.gc.step)
+    ref = optim.tree_leaves(grad_compress.compress_update(g_tp,
+                                                          whole_gc)[0])
+    del whole_gc, g_tp
+    worst, at, floors = 0.0, None, []
+    for path, a, r, o in zip(paths, gh_tp, ref, gh_one):
+        a, o = a.to(dev), o.to(dev)
+        same = (a - r).abs().max().item() / r.abs().max().item()
+        floor = (r - o).abs().max().item() / o.abs().max().item()
+        floors.append(floor)
+        ratio = same / max(1e-5, 1.5 * floor)
+        if at is None or ratio > worst:
+            worst, at = ratio, (path, same, floor)
+    del ref, a, r, o
+    torch.cuda.empty_cache()
+    print(f"tp13 (a) {cfg.arch} pca_ef rank {GC_RANK} under tp {TP_N} over "
+          f"{TP_N} x {dev}, bf16 compute, remat, ce_chunk {TRAIN_CE_CHUNK}: "
+          f"the TP compression of the TP gradient {wall_gc:.3f} s; against "
+          f"one card's compression of the same gradient, the worst leaf at "
+          f"{worst:.4f} of its gate (gate 1: 1e-5 of its largest, or 1.5 x "
+          f"the distance between one card's compressions of the one-card "
+          f"and the TP bf16 gradient, {min(floors):.3e}-{max(floors):.3e}; "
+          f"set in {at[0]}: {at[1]:.3e}, floor {at[2]:.3e}); logged "
+          f"{json.dumps(log_gc)} (reckoned {json.dumps(want_gc)}: "
+          f"{reck['all_gathers']} leaves whose blocks straddle their pieces "
+          f"gathered)", flush=True)
+    if not worst <= 1.0:
+        raise CheckFailed(f"tp13 (a): the TP compression of {at[0]} is "
+                          f"{worst:.3f} x its gate from one card's")
+    if log_gc != want_gc:
+        raise CheckFailed(f"tp13 (a): the compression logged {log_gc}, "
+                          f"reckoned {want_gc}")
+    step = loop.make_train_step(cfg, run, opt, mesh=mesh)
+    losses, walls, logs = [], [], []
+    for i in range(TP13_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        collectives.LOG.reset()
+        if i == TP13_STEPS - 1:
+            holder = {}
+            wall_p, busy, idle = _tp_idle(torch, lambda: holder.update(
+                zip(("state", "m"), step(state, corpus.batch_at(i)))))
+            new, m = holder.pop("state"), holder.pop("m")
+            walls.append(wall_p / 1e3)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, m = step(state, corpus.batch_at(i))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        logs.append(collectives.LOG.summary())
+        losses.append(float(m["loss"]))
+        if i == 0:
+            ratio_gc = (m["grad_compression"], m_one["grad_compression"])
+            clip = [min(1.0, 1.0 / (math.sqrt(sum(
+                float(x.to(dev).double().square().sum()) for x in gs))
+                + 1e-12)) for gs in (gh_one, gh_tp)]
+            lr = float(optim.warmup_cosine_schedule(
+                TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)(1))
+            worst_p, at_p = 0.0, None
+            for path, p, gj, gt, a, b in zip(
+                    paths, _unshard_leaves(torch, state.params), gh_one,
+                    gh_tp, new_one, _unshard_leaves(torch, new.params)):
+                ratio, terms = _first_step_excess(
+                    torch, p, gj * clip[0], gt * clip[1], a, b, lr)
+                if at_p is None or ratio > worst_p:
+                    worst_p, at_p = ratio, (path, terms)
+            del gh_one, gh_tp, new_one, p, gj, gt, a, b
+        state = new
+        del new
+    peak_tp = torch.cuda.max_memory_allocated() / 2 ** 30
+    want_steps = [_log_sum(log_grads, {"bytes": gathers, "counts": {
+        "all-gather": reck["all_gathers"]}}, *([{"bytes": refresh, "counts": {
+            "all-reduce": 1}}] if i % GC_REFRESH == 0 else []))
+        for i in range(TP13_STEPS)]
+    print(f"tp13 (a) {cfg.arch} trained tp {TP_N} with pca_ef: losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)} (one card's step 0 "
+          f"{float(m_one['loss']):.4f}); step walls s "
+          f"{' '.join(f'{x:.4f}' for x in walls)} (one card's compressed "
+          f"step {wall_one:.4f}; the last profiled: device busy "
+          f"{busy:.1f} ms, idle share {idle:.4f}); peak memory of steps "
+          f"1-{TP13_STEPS - 1} {peak_tp:.2f} GiB against one card's "
+          f"compressed step's {peak_one:.2f} GiB; new params at "
+          f"{worst_p:.4f} of Adam's first-step bound of one card's (gate 1; "
+          f"set in {at_p[0]} by {at_p[1]}); grad_compression "
+          f"{ratio_gc[0]:.6f} (one card's {ratio_gc[1]:.6f}); each step's "
+          f"log = the TP gradient's {json.dumps(log_grads)} + the "
+          f"compression's: {[log == w for log, w in zip(logs, want_steps)]}",
+          flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise CheckFailed(f"tp13 (a): losses {losses}")
+    if not worst_p <= 1.0:
+        raise CheckFailed(f"tp13 (a): a new param is {worst_p:.3f}x Adam's "
+                          f"first-step bound from one card's")
+    if ratio_gc[0] != ratio_gc[1]:
+        raise CheckFailed(f"tp13 (a): grad_compression {ratio_gc}")
+    if logs != want_steps:
+        raise CheckFailed(f"tp13 (a): the steps logged {logs}, reckoned "
+                          f"{want_steps}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def tp13_mamba_gae(torch, dev, counters, rows) -> int:
+    """(b) mamba2-370m, phase 12 (b)'s fp32 step (remat, ce_chunk) with
+    ``gae`` at tau GRAD_TAU, B 1 x S TRAIN_SEQ, over (1, 2) of the card
+    repeated, TP13_GAE_STEPS steps.  Gates: every block of each step's
+    compressed gradient within GRAD_TAU of its gradient (the whole leaves'
+    blocks); gae_project and quantize launched as reckoned a step
+    (``_tp13_reckoning``); the two kernels at the largest shard's blocks
+    against their plain versions (``check_train_kernels``, rows
+    TP13_SHARD); finite losses.  Printed: keep_frac beside one card's on
+    the same batch, walls against one card's step.  Returns the launches
+    of one step."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import grad_compress
+    from repro_torch.train import loop, optim
+
+    cfg = get_config("mamba2-370m")
+    run = RunConfig(tp=TP_N, remat=True, ce_chunk=TRAIN_CE_CHUNK,
+                    gradient_compression="gae", grad_comp_tau=GRAD_TAU)
+    opt = optim.adamw(optim.warmup_cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                                   TRAIN_STEPS),
+                      weight_decay=0.01, max_grad_norm=1.0)
+    corpus = SyntheticCorpus(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1, seed=0))
+    state = loop.init_train_state(torch.Generator(dev).manual_seed(0), cfg,
+                                  run, opt, dev)
+    reck = _tp13_reckoning(state.params, TP_N)
+    check_train_kernels(torch, dev, rows, reck["shard_blocks"], TP13_SHARD)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m_one = loop.make_train_step(cfg, run, opt)(state, corpus.batch_at(0))
+    torch.cuda.synchronize()
+    wall_one = time.perf_counter() - t0
+    mesh = make_mesh((1, TP_N), ("data", "model"), [dev] * TP_N)
+    state = loop.shard_train_state(state, mesh)
+    torch.cuda.empty_cache()
+    step = loop.make_train_step(cfg, run, opt, mesh=mesh)
+    real = grad_compress.gae_compress_grads
+    seen = {}
+
+    def recording(grads, **kw):
+        out = real(grads, **kw)
+        seen.update(grads=grads, out=out)
+        return out
+
+    losses, walls, keep, launched, worst = [], [], [], [], 0.0
+    for i in range(TP13_GAE_STEPS):
+        for c in counters.values():
+            c.reset()
+        grad_compress.gae_compress_grads = recording
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, corpus.batch_at(i))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        finally:
+            grad_compress.gae_compress_grads = real
+        launched.append({k: counters[k].value
+                         for k in ("gae_project", "quantize")})
+        losses.append(float(m["loss"]))
+        stats = seen["out"][1]
+        keep.append((float(m["grad_keep_frac"]), int(stats["exact_blocks"])))
+        for g, b in zip(_unshard_leaves(torch, seen["grads"]),
+                        _unshard_leaves(torch, seen["out"][0])):
+            worst = max(worst, float(_block_errs(np, g, b).max()))
+        seen.clear()
+    print(f"tp13 (b) mamba2-370m trained tp {TP_N} over {TP_N} x {dev}, B 1 "
+          f"x S {TRAIN_SEQ}, fp32, remat, gae tau {GRAD_TAU}: losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)} (one card's step 0 "
+          f"{float(m_one['loss']):.4f}); step walls s "
+          f"{' '.join(f'{x:.4f}' for x in walls)} (one card's {wall_one:.4f}"
+          f"); keep_frac, blocks kept exact {keep} (one card's step 0 "
+          f"keep_frac {float(m_one['grad_keep_frac']):.6f}); largest block "
+          f"l2 error {worst:.6e} (gate {GRAD_TAU}); gae_project and quantize "
+          f"launched {launched} (gate {reck['gae_launches']} a step: "
+          f"{reck['aligned_split']} split leaves compressed on each of "
+          f"{TP_N} pieces, {reck['all_gathers']} gathered); rows "
+          f"{TP13_SHARD!r} at ({reck['shard_blocks']}, {GC_BLOCK})",
+          flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise CheckFailed(f"tp13 (b): losses {losses}")
+    if not worst <= GRAD_TAU * (1 + 1e-4):
+        raise CheckFailed(f"tp13 (b): a block is {worst} from its gradient, "
+                          f"more than tau {GRAD_TAU}")
+    if any(set(n.values()) != {reck["gae_launches"]} for n in launched):
+        raise CheckFailed(f"tp13 (b): gae_project and quantize launched "
+                          f"{launched}, not {reck['gae_launches']} a step")
+    del state
+    torch.cuda.empty_cache()
+    return launched[0]["gae_project"]
+
+
 def tp_launchers() -> None:
-    """Phase 11 (e) and phase 12 (f), as subprocesses at once: ``python -m
-    repro_torch.launch.train --arch qwen2-1.5b --reduced --tp 2 --device
-    cuda:0,cuda:0 --steps 4`` (gates: exit 0, its done line, flash launched
-    layers x shards a step), the same with ``--arch mamba2-370m`` (ssd_scan
-    layers x shards a step), and ``--tp 2 --grad-compression pca_ef``
-    (gate: exit 2 naming ROADMAP.md)."""
+    """Phase 11 (e), phase 12 (f) and phase 13 (c), as subprocesses at
+    once: ``python -m repro_torch.launch.train --arch qwen2-1.5b --reduced
+    --tp 2 --device cuda:0,cuda:0 --steps 4`` (gates: exit 0, its done
+    line, flash launched layers x shards a step), the same with ``--arch
+    mamba2-370m`` (ssd_scan layers x shards a step), and reduced qwen2-1.5b
+    with ``--tp 2 --grad-compression pca_ef --steps 2`` (the same
+    gates)."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import reduced_config
 
@@ -5117,46 +5496,38 @@ def tp_launchers() -> None:
               for a in ("qwen2-1.5b", "mamba2-370m")}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        refused = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-             "qwen2-1.5b", "--reduced", "--tp", "2", "--grad-compression",
-             "pca_ef", "--device", "cuda:0,cuda:0", "--steps", "1",
-             "--ckpt", os.path.join(tmp, "r")],
-            env=env, cwd=tmp, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-        try:
-            qwen, mamba = _train_cli_group(
-                [("tp qwen2", ["--arch", "qwen2-1.5b", "--reduced", "--tp",
-                               "2", "--device", "cuda:0,cuda:0", "--steps",
-                               "4", "--ckpt", os.path.join(tmp, "q")],
-                  ("done: steps 0->4",)),
-                 ("tp mamba2", ["--arch", "mamba2-370m", "--reduced", "--tp",
-                                "2", "--device", "cuda:0,cuda:0", "--steps",
-                                "4", "--batch", "1", "--seq",
-                                str(LAUNCH_REDUCED_SEQ), "--ckpt",
-                                os.path.join(tmp, "m")],
-                  ("done: steps 0->4",))], env, tmp)
-            said = refused.communicate(timeout=300)[0]
-        finally:
-            if refused.poll() is None:
-                refused.kill()
-                refused.wait()
+        qwen, mamba, pca = _train_cli_group(
+            [("tp qwen2", ["--arch", "qwen2-1.5b", "--reduced", "--tp", "2",
+                           "--device", "cuda:0,cuda:0", "--steps", "4",
+                           "--ckpt", os.path.join(tmp, "q")],
+              ("done: steps 0->4",)),
+             ("tp mamba2", ["--arch", "mamba2-370m", "--reduced", "--tp",
+                            "2", "--device", "cuda:0,cuda:0", "--steps", "4",
+                            "--batch", "1", "--seq", str(LAUNCH_REDUCED_SEQ),
+                            "--ckpt", os.path.join(tmp, "m")],
+              ("done: steps 0->4",)),
+             ("tp qwen2 pca_ef", ["--arch", "qwen2-1.5b", "--reduced", "--tp",
+                                  "2", "--grad-compression", "pca_ef",
+                                  "--device", "cuda:0,cuda:0", "--steps", "2",
+                                  "--ckpt", os.path.join(tmp, "p")],
+              ("done: steps 0->2",))], env, tmp)
         wall = time.perf_counter() - t0
     print(f"tp (e) the launcher: --tp 2 over cuda:0,cuda:0 launched "
           f"{json.dumps(qwen)} in 4 steps (gate flash_attention "
-          f"{4 * layers['qwen2-1.5b'] * TP_N}); --tp 2 with --grad-compression "
-          f"pca_ef exit {refused.returncode}: "
-          f"{said.strip().splitlines()[-1:]}", flush=True)
+          f"{4 * layers['qwen2-1.5b'] * TP_N})", flush=True)
     print(f"tp12 (f) the launcher: --arch mamba2-370m --reduced --tp 2 over "
           f"cuda:0,cuda:0 launched {json.dumps(mamba)} in 4 steps (gate "
           f"ssd_scan {4 * layers['mamba2-370m'] * TP_N}); wall {wall:.1f} s "
           f"for the three at once (device busy not measured: subprocesses)",
           flush=True)
+    print(f"tp13 (c) the launcher: --arch qwen2-1.5b --reduced --tp 2 "
+          f"--grad-compression pca_ef launched {json.dumps(pca)} in 2 steps "
+          f"(gate flash_attention {2 * layers['qwen2-1.5b'] * TP_N})",
+          flush=True)
     if qwen["flash_attention"] != 4 * layers["qwen2-1.5b"] * TP_N:
         raise CheckFailed(f"tp (e): flash_attention launched {qwen}")
-    if refused.returncode != 2 or "ROADMAP.md" not in said:
-        raise CheckFailed(f"tp (e): --tp 2 with pca_ef exited "
-                          f"{refused.returncode}: {said[-500:]}")
+    if pca["flash_attention"] != 2 * layers["qwen2-1.5b"] * TP_N:
+        raise CheckFailed(f"tp13 (c): flash_attention launched {pca}")
     if mamba["ssd_scan"] != 4 * layers["mamba2-370m"] * TP_N:
         raise CheckFailed(f"tp12 (f): ssd_scan launched {mamba}")
 
@@ -5246,6 +5617,8 @@ def main() -> int:
                               counters))
         launches.update(timed("tp families", run_tp_families_path, torch,
                               dev, counters))
+        launches.update(timed("tp compression", run_tp_compression_path,
+                              torch, dev, counters, rows))
     except (CheckFailed, AssertionError) as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

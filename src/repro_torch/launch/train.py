@@ -7,7 +7,7 @@ train step -> checkpoint/restart -> failure-resilient loop.
       --steps 4 --grad-compression pca_ef --ckpt /tmp/ck --resume
 
   python -m repro_torch.launch.train --arch qwen2-1.5b --reduced --tp 2 \
-      --device cuda:0,cuda:0 --steps 4
+      --device cuda:0,cuda:0 --steps 4 --grad-compression pca_ef
 
 The flags and printed lines are the JAX package's (``resumed at step N``,
 ``[event] {...}``, ``done: steps a->b  loss=...  ... tok/s  restores=...``),
@@ -17,16 +17,17 @@ plus ``--device``.  As the JAX launcher, it builds the host mesh
 ``--device cuda:0,cuda:0`` runs two shards on one card), and steps in the
 GSPMD mode (``train.loop``): data-parallel over the mesh's rows and, with
 ``--tp`` above 1, tensor-parallel over each row's model shards (the dense,
-moe, ssm and hybrid families; params padded for ``--tp``); ``--batch`` must
-split over the data shards (exit 2).  On one device the step is the
-one-device step.  The moe family trains over one data shard: over more it
-exits 2.  SIGTERM and SIGINT checkpoint at the next step boundary and stop.
-Exit 2 at parse time also for ``--tp`` above 1 with ``--grad-compression
-pca_ef|gae``, and for the vlm and audio families: their batches need a
-frontend (``vision_embeds``, ``frames``) that the token pipeline does not
-make.  ``--resume`` reads a step directory written by
-this launcher (with any ``--tp``: the arrays are whole) or by the JAX
-package's (``runtime.checkpoint``), and shards it over the mesh.
+moe, ssm and hybrid families; params padded for ``--tp``), with any
+``--grad-compression`` (under ``--tp`` on the gradient's pieces);
+``--batch`` must split over the data shards (exit 2).  On one device the
+step is the one-device step.  The moe family trains over one data shard:
+over more it exits 2.  SIGTERM and SIGINT checkpoint at the next step
+boundary and stop.  Exit 2 at parse time also for the vlm and audio
+families: their batches need a frontend (``vision_embeds``, ``frames``)
+that the token pipeline does not make.  ``--resume`` reads a step directory written by
+this launcher (with any ``--tp``: the arrays, the compression's error
+buffers among them, are whole) or by the JAX package's
+(``runtime.checkpoint``), and shards it over the mesh.
 """
 from __future__ import annotations
 

@@ -414,6 +414,22 @@ class Sharded:
     def __init__(self, pieces: np.ndarray, spec, mesh: Mesh):
         self.pieces, self.spec, self.mesh = pieces, P(*spec), mesh
 
+    @property
+    def shape(self) -> tuple:
+        """The whole tensor's shape: each piece's, times the number of
+        pieces along each split dim."""
+        first = self.pieces.flat[0]
+        return tuple(n * int(np.prod([self.mesh.shape[a] for a in axes]))
+                     for n, axes in zip(first.shape, _dim_axes(
+                         self.spec, first.ndim, self.mesh)))
+
+    def split_dims(self) -> list:
+        """The dims that the mesh cuts into more than one piece."""
+        first = self.pieces.flat[0]
+        return [d for d, axes in enumerate(_dim_axes(self.spec, first.ndim,
+                                                     self.mesh))
+                if int(np.prod([self.mesh.shape[a] for a in axes])) > 1]
+
     def slice_key(self, coord: tuple) -> tuple:
         """Which slice of the whole the piece at ``coord`` is: its index
         along each split dim."""

@@ -34,8 +34,12 @@ and the gradients are ``sharding.Sharded`` pieces cut by
 ``param_partition_specs`` (``shard_train_state``), each data shard's forward
 is the tensor-parallel forward over its row of the mesh
 (``parallel.tensor``), and AdamW runs on each piece, clipped by the global
-norm of all of them (each slice once).  A one-device ``TrainState`` handed
-to it is sharded first; a checkpoint of its state holds the whole arrays.
+norm of all of them (each slice once).  Gradient compression (``pca_ef``,
+``gae``) runs on the gradient pieces after the data axis's mean, as JAX's
+GSPMD step runs it on the whole gradient (``grad_compress``): the error
+buffers are pieces cut as the params, the basis one per device.  A
+one-device ``TrainState`` handed to it is sharded first; a checkpoint of
+its state holds the whole arrays.
 """
 from __future__ import annotations
 
@@ -187,8 +191,10 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
         if tp_size(mesh) > 1:
             raise NotImplementedError(
                 f"axis_name={axis_name!r} over a mesh with a model axis of "
-                f"{tp_size(mesh)}: gradient compression under tensor "
-                f"parallelism waits for its slice (ROADMAP.md §1)")
+                f"{tp_size(mesh)}: the JAX package has no shard_map step "
+                f"over a model axis (ROADMAP.md §1); train tensor-parallel "
+                f"in the GSPMD mode, make_train_step(mesh=...) without "
+                f"axis_name")
         if run.gradient_compression != "pca_ef":
             raise ValueError(
                 f"gradient_compression {run.gradient_compression!r} under "
@@ -218,18 +224,26 @@ def _apply_grads(run: RunConfig, optimizer: optim.Optimizer) -> Callable:
     def apply(state: TrainState, loss: Tensor, grads: PyTree
               ) -> tuple[TrainState, dict]:
         metrics = {"loss": loss}
-        gc_state = state.gc
-        if run.gradient_compression == "pca_ef":
-            grads, gc_state, gc_stats = grad_compress.compress_update(
-                grads, gc_state)
-            metrics["grad_compression"] = gc_stats["compression"]
-        elif run.gradient_compression == "gae":
-            grads, gc_stats = grad_compress.gae_compress_grads(
-                grads, tau=run.grad_comp_tau or 1e-3)
-            metrics["grad_keep_frac"] = gc_stats["keep_frac"]
+        grads, gc_state = _compress(run, state.gc, grads, metrics)
         return _update(optimizer, state, grads, gc_state, metrics)
 
     return apply
+
+
+def _compress(run: RunConfig, gc_state, grads: PyTree, metrics: dict
+              ) -> tuple[PyTree, Any]:
+    """The step's gradient compression: (the gradients the optimizer
+    takes, the new compression state), its stat added to ``metrics``.
+    A tree of ``Sharded`` pieces is compressed on its pieces."""
+    if run.gradient_compression == "pca_ef":
+        grads, gc_state, gc_stats = grad_compress.compress_update(
+            grads, gc_state)
+        metrics["grad_compression"] = gc_stats["compression"]
+    elif run.gradient_compression == "gae":
+        grads, gc_stats = grad_compress.gae_compress_grads(
+            grads, tau=run.grad_comp_tau or 1e-3)
+        metrics["grad_keep_frac"] = gc_stats["keep_frac"]
+    return grads, gc_state
 
 
 def _update(optimizer: optim.Optimizer, state: TrainState, grads: PyTree,
@@ -437,14 +451,10 @@ def _check_tensor_parallel(cfg: ModelConfig, run: RunConfig,
 
 
 def check_tensor_parallel(cfg: ModelConfig, run: RunConfig) -> None:
-    """Raise ``NotImplementedError`` for what ``run.tp`` > 1 does not train
-    yet: gradient compression (ROADMAP.md §1)."""
+    """Raise ``NotImplementedError`` for what ``run.tp`` > 1 does not
+    train: a family without tensor parallelism
+    (``registry.check_tensor_parallel``; every family has it)."""
     registry.check_tensor_parallel(cfg, run.tp)
-    if run.tp > 1 and run.gradient_compression != "none":
-        raise NotImplementedError(
-            f"gradient compression under tensor parallelism "
-            f"({run.gradient_compression!r}) waits for its slice "
-            f"(ROADMAP.md §1)")
 
 
 def is_sharded(tree) -> bool:
@@ -454,16 +464,22 @@ def is_sharded(tree) -> bool:
 
 def shard_train_state(state: TrainState, mesh: Mesh) -> TrainState:
     """``state`` (one device's, as ``init_train_state`` or a checkpoint's
-    ``restore`` gives it) with its params and each of the optimizer's
-    param-shaped trees held as ``Sharded`` pieces over ``mesh``, cut by
-    ``param_partition_specs(tp_size=)`` of the mesh's model axis."""
+    ``restore`` gives it) with its params, each of the optimizer's
+    param-shaped trees and the compression's error buffers held as
+    ``Sharded`` pieces over ``mesh``, cut by ``param_partition_specs(
+    tp_size=)`` of the mesh's model axis, and the compression's basis
+    replicated (one per device)."""
     n = tp_size(mesh)
     opt = state.opt
     opt = type(opt)(*(f if name == "step" else
                       sharding.shard_params(f, mesh, n)
                       for name, f in zip(opt._fields, opt)))
+    gc = state.gc
+    if gc is not None:
+        gc = gc._replace(basis=sharding.shard_leaf(gc.basis, (), mesh),
+                         error=sharding.shard_params(gc.error, mesh, n))
     return state._replace(params=sharding.shard_params(state.params, mesh, n),
-                          opt=opt)
+                          opt=opt, gc=gc)
 
 
 def model_shards(params, mesh: Mesh, row: int = 0) -> Shards:
@@ -481,9 +497,13 @@ def unshard_train_state(state: TrainState) -> TrainState:
     """A sharded state's whole tensors, each on its first piece's
     device."""
     opt = state.opt
+    gc = state.gc
+    if gc is not None:
+        gc = gc._replace(**{f: sharding.unshard_params(getattr(gc, f))
+                            for f in ("basis", "error")})
     return state._replace(
         params=sharding.unshard_params(state.params),
-        opt=type(opt)(*(sharding.unshard_params(f) for f in opt)))
+        opt=type(opt)(*(sharding.unshard_params(f) for f in opt)), gc=gc)
 
 
 def tensor_parallel_value_and_grad(cfg: ModelConfig, run: RunConfig,
@@ -606,9 +626,10 @@ def _tensor_parallel_step(cfg: ModelConfig, run: RunConfig,
                           mesh: Mesh) -> Callable:
     """The GSPMD step over a mesh with a ``"model"`` axis (module
     docstring): the gradient pieces of ``tensor_parallel_value_and_grad``,
-    their global norm over each slice once (a sharded leaf's pieces, a
-    replicated leaf once), then the optimizer on copies of each device's
-    pieces, clipped by that norm."""
+    compressed on their pieces (``_compress``), their global norm over
+    each slice once (a sharded leaf's pieces, a replicated leaf once),
+    then the optimizer on copies of each device's pieces, clipped by that
+    norm."""
     grads_of = tensor_parallel_value_and_grad(cfg, run, mesh, microbatches)
     home = mesh.devices.flat[0]
 
@@ -616,6 +637,8 @@ def _tensor_parallel_step(cfg: ModelConfig, run: RunConfig,
         if not is_sharded(state.params):
             state = shard_train_state(state, mesh)
         loss, grads = grads_of(state.params, batch)
+        metrics = {"loss": loss}
+        grads, gc_state = _compress(run, state.gc, grads, metrics)
         opt = state.opt
         # the params and the optimizer's trees, copied (the step is
         # functional) and updated in place
@@ -637,7 +660,7 @@ def _tensor_parallel_step(cfg: ModelConfig, run: RunConfig,
                     first.setdefault(dev, []).append(leaf[-1].pieces[coord])
         norm = optim.global_norm_of_groups(
             [first[d] for d in sorted(first, key=lambda d: d != home)])
-        new_step, metrics = None, {"loss": loss}
+        new_step = None
         for dev, lists in groups.items():
             _, st, stats = optimizer.update(
                 lists[-1], type(opt)(opt.step.to(dev), *lists[1:-1]),
@@ -646,7 +669,7 @@ def _tensor_parallel_step(cfg: ModelConfig, run: RunConfig,
                 new_step = st.step
                 metrics.update(stats)
         return TrainState(params=trees[0],
-                          opt=type(opt)(new_step, *trees[1:]), gc=None,
+                          opt=type(opt)(new_step, *trees[1:]), gc=gc_state,
                           step=state.step + 1), metrics
 
     return step

@@ -271,14 +271,16 @@ def test_moe_fallback_splits_each_experts_f():
 
 
 def test_forward_refuses_what_is_not_ported():
-    """Gradient compression under tensor parallelism and decoding from
-    split params wait for their slices."""
+    """The ``shard_map`` step over a model axis (the JAX package has none;
+    gradient compression trains under tensor parallelism in the GSPMD
+    mode) and decoding from split params are refused."""
     qwen, run, params = _setup("qwen2-1.5b", 2)
-    mesh = t_mesh.make_mesh((1, 2), ("data", "model"), ["cpu"] * 2)
+    mesh = t_mesh.make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+    compressed = RunConfig(tp=2, gradient_compression="pca_ef")
+    loop.make_train_step(qwen, compressed, optim.adamw(1e-3), mesh=mesh)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        loop.make_train_step(qwen, RunConfig(
-            tp=2, gradient_compression="pca_ef"), optim.adamw(1e-3),
-            mesh=mesh)
+        loop.make_train_step(qwen, compressed, optim.adamw(1e-3), mesh=mesh,
+                             axis_name="data")
     shards = _shards(params, t_mesh.make_mesh((1, 2), ("data", "model"),
                                               ["cpu"] * 2), 2)
     with pytest.raises(NotImplementedError, match="sharded decode state"):

@@ -519,19 +519,59 @@ def test_launcher_trains_moe_with_tp(tmp_path):
     assert "done: steps 0->2" in out.stdout
 
 
-# the ssm and hybrid families train under --tp
-# (tests/test_torch_train_tp_families.py); what they still refuse is
-# gradient compression
+# gradient compression under --tp, on each family the launcher trains
+# (tests/test_torch_train_tp_compress.py holds the step to JAX's)
+@pytest.mark.parametrize("arch,mode", [("mamba2-370m", "gae"),
+                                       ("recurrentgemma-9b", "pca_ef"),
+                                       ("qwen2-1.5b", "pca_ef")],
+                         ids=["ssm_gae", "hybrid_pca_ef", "dense_pca_ef"])
+def test_launcher_compresses_under_tp_and_resumes(arch, mode, tmp_path):
+    """``--tp 2 --grad-compression`` trains, and a run cut at step 2 and
+    resumed ends at step 4 with the uninterrupted run's state, bit for
+    bit: params, Adam's moments and the compression state (the warmup
+    of 20 steps makes the learning rate the same whatever ``--steps``)."""
+    # one thread each: two runs at once beside the suite's workers, whose
+    # threads would otherwise spin against each other in gae's eigh
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    args = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+            "--reduced", "--tp", "2", "--device", "cpu,cpu", "--batch", "2",
+            "--seq", "32", "--grad-compression", mode]
+    procs = [subprocess.Popen(args + ["--steps", str(n), "--ckpt",
+                                      str(tmp_path / d)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env, cwd=REPO)
+             for n, d in ((4, "whole"), (2, "cut"))]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+    assert "done: steps 0->4" in outs[0][0]
+    again = subprocess.run(args + ["--steps", "2", "--ckpt",
+                                   str(tmp_path / "cut"), "--resume"],
+                           capture_output=True, text=True, env=env, cwd=REPO,
+                           timeout=300)
+    assert again.returncode == 0, again.stderr
+    assert "resumed at step 2" in again.stdout
+    assert "done: steps 2->4" in again.stdout
+    (s_a, a), (s_b, b) = (CheckpointManager(str(tmp_path / d),
+                                            device="cpu").restore()
+                          for d in ("whole", "cut"))
+    assert s_a == s_b == 4
+    assert a.gc is not None if mode == "pca_ef" else a.gc is None
+    for x, y in zip(_leaves(a), _leaves(b)):
+        np.testing.assert_array_equal(x, y)
+
+
 @pytest.mark.parametrize("args,says", [
-    (("--arch", "mamba2-370m", "--tp", "2", "--grad-compression", "gae"),
-     "gradient compression under tensor parallelism"),
-    (("--arch", "recurrentgemma-9b", "--tp", "2", "--grad-compression",
-      "pca_ef"), "gradient compression under tensor parallelism"),
-    (("--arch", "qwen2-1.5b", "--tp", "2", "--grad-compression", "pca_ef"),
-     "gradient compression under tensor parallelism"),
     (("--arch", "granite-moe-3b-a800m", "--tp", "2", "--device",
       "cpu,cpu,cpu,cpu"), "divergence 10"),
-], ids=["ssm", "hybrid", "pca_ef", "moe_2x2"])
+], ids=["moe_2x2"])
 def test_launcher_refusals_under_tp_name_the_roadmap(args, says):
     out = _cli(*args, "--reduced", "--steps", "1", "--batch", "4", "--seq",
                "16", timeout=120)

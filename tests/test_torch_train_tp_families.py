@@ -1,7 +1,7 @@
 """The port's tensor-parallel train step of the ssm, hybrid, vlm and audio
 families against the JAX package's launcher-style jitted step, on the CPU,
 and what goes with it: the replicated leaves' gradients, ``remat`` under
-TP, what ``check_tensor_parallel`` still refuses, and the launcher.
+TP, that ``check_tensor_parallel`` takes every family, and the launcher.
 
 The JAX ``TrainState`` at ``RunConfig(tp=N)``, its params perturbed as
 ``tests/test_torch_tp_families.py`` perturbs them (every leaf whose init is
@@ -365,15 +365,14 @@ def test_replicated_leaves_over_distinct_copies(arch):
 
 
 def test_every_family_is_tensor_parallel():
-    """``check_tensor_parallel`` takes every family at tp 2 and still
-    refuses gradient compression under it."""
+    """``check_tensor_parallel`` takes every family at tp 2, with each
+    gradient compression too."""
     for arch in ("qwen2-1.5b", "granite-moe-3b-a800m", *ONE_A_FAMILY):
         cfg = get_config(arch)
         registry.check_tensor_parallel(cfg, 2)
-        loop.check_tensor_parallel(cfg, RunConfig(tp=2))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        for mode in ("none", "pca_ef", "gae"):
             loop.check_tensor_parallel(cfg, RunConfig(
-                tp=2, gradient_compression="gae"))
+                tp=2, gradient_compression=mode))
 
 
 # ---------------------------------------------------------------------------
