@@ -255,7 +255,45 @@ Phases, each reported on its own lines:
    11's (e).  The rows of
    flash_attention and ssd_scan at these shard shapes (``TP12_FLASH``,
    ``SSD_TP``) are timed in phase 2 and take their launches from here;
-13. one JSON line with every kernel's numbers (one row per kernel and
+13. gradient compression under tensor parallelism over the card repeated
+   ("tp compression", ``runtime/grad_compress.py`` on a TP gradient's
+   pieces): (a) qwen2-1.5b with phase 11 (b)'s train config and
+   ``pca_ef``, 3 TP steps (gates: the TP compression of the TP gradient
+   within 1e-5, or 1.5x the bf16 floor, of one card's compression of the
+   same gradient; the compression's logged all-gathers and all-reduce
+   equal ``_tp13_reckoning``; params within Adam's first-step bound of one
+   card's compressed step; the loss falls); (b) mamba2-370m fp32 with
+   ``gae`` at tau 1e-3 (gates: every block within tau; gae_project and
+   quantize 16 launches a step, both held to their plain versions at a
+   shard's blocks, ``TP13_SHARD``); (c) the launcher with ``--tp 2
+   --grad-compression pca_ef``, run with phase 11's (e) and 12's (f);
+14. FSDP over the card repeated as a (2, 2) mesh ("fsdp",
+   ``parallel/fsdp.py``: params, moments and gradients cut over "data" as
+   well as "model" by ``train_state_specs(fsdp=True)``, gathered at use,
+   reduce-scattered), seeded weights at ``RunConfig(tp=2)``: (a)
+   qwen2-1.5b at full width and depth with phase 11 (b)'s train config,
+   B 2 x S 4096 (gates, against the (2, 2) tensor-parallel step from the
+   same state: the loss within 1e-5 relative, every gradient leaf within
+   1e-5 of its largest, params within Adam's first-step bound; 3 more
+   steps, the loss falls; flash_attention 224 launches a step; the logged
+   all-gathers and reduce-scatters equal ``_fsdp_reckoning``, counts and
+   bytes; printed: walls, busy, idle share, peaks, and the reckoned bytes
+   a device holds on a mesh of 4 distinct cards against the TP layout's);
+   (b) mamba2-370m fp32 with remat, B 2 x S 4096, its packed
+   ``in_proj``/``conv_w`` gathered over "data" then picked over "model"
+   (the same gates; ssd_scan 384 launches a step); (c) elastic restore:
+   qwen2-1.5b at full width and 1 of its 28 layers, one FSDP step,
+   ``save``, then ``restore(mesh=, shardings=)`` onto FSDP (2, 2) (gate:
+   the next step bit for bit), tensor-parallel (1, 2) and one device
+   (gates: the restored layout's gradient within 1e-5, or 1.5x the bf16
+   floor, of the uninterrupted run's, its loss within 1e-5 relative (one
+   device: or 1.5x the floor), the new params within Adam's bound from
+   the restored moments); printed: save and restore seconds, bytes
+   written.  The FSDP steps' launches stand on the tensor-parallel rows
+   of flash_attention and ssd_scan at the same shapes, as
+   ``fsdp_launches``;
+15. the wall of every phase (``phases s: {...}``) and the total;
+16. one JSON line with every kernel's numbers (one row per kernel and
    dtype, and the train rows), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -5534,6 +5572,553 @@ def tp_launchers() -> None:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 14: FSDP placements and elastic restore
+# ---------------------------------------------------------------------------
+
+FSDP_DP, FSDP_B = 2, 2          # a (2, 2) mesh, B 2: one row a data shard
+FSDP_STEPS = 4                  # (a): the step held to TP's, then 3 more
+FSDP_ELASTIC_LAYERS = 1         # (c): a depth cut of qwen2-1.5b's 28
+# the tensor-parallel rows whose shapes the FSDP steps launch at
+FSDP_FLASH = ("flash_attention", "bfloat16", TP_FLASH["qwen2-1.5b"])
+FSDP_SSD = ("ssd_scan", "float32", SSD_TP)
+
+
+def _fsdp_reckoning(params, specs, dp: int, tp: int, remat: bool) -> dict:
+    """FSDP's collectives of one train step over a (dp, tp) mesh of one
+    device repeated, reckoned from the whole shapes and the specs: each
+    data row's model shard all-gathers each leaf cut over "data" (its
+    tensor-parallel piece, in the params' dtype) once per layer slice of a
+    stacked leaf, twice under remat (the forward and the backward's
+    recompute), and once a forward outside the stacks; the data axis's
+    mean is one reduce-scatter of one data shard's piece per cut leaf and
+    distinct model column (tp columns for a leaf the model axis splits,
+    one for a leaf it replicates on the repeated device).  Also each
+    device's bytes of params, Adam's two moments and the gradient under
+    ``specs`` (``"state"``) on a mesh of distinct devices."""
+    from repro_torch.parallel import sharding
+    from repro_torch.train import optim
+
+    ops = {"all-gather": [0, 0], "reduce-scatter": [0, 0]}
+    per_device = 0
+    for path, x, spec in zip(_leaf_paths(params), optim.tree_leaves(params),
+                             _spec_leaves(specs)):
+        axes = sharding.spec_axes(spec)
+        shape, size = list(x.shape), x.element_size()
+        tp_piece, piece = list(shape), list(shape)
+        for d, entry in enumerate(spec):
+            if "model" in sharding.spec_axes((entry,)):
+                tp_piece[d] //= tp
+                piece[d] //= tp
+            if "data" in sharding.spec_axes((entry,)):
+                piece[d] //= dp
+        if "data" in axes:
+            depth = sharding.stack_depth(path)
+            slices = math.prod(shape[:depth])
+            uses = slices * (2 if remat and depth else 1)
+            n = dp * tp * uses
+            ops["all-gather"][0] += n
+            ops["all-gather"][1] += n * math.prod(tp_piece) // slices * size
+            cols = tp if "model" in axes else 1
+            ops["reduce-scatter"][0] += cols
+            ops["reduce-scatter"][1] += cols * math.prod(piece) * size
+        per_device += 4 * math.prod(piece) * size
+    return {"counts": {k: v[0] for k, v in ops.items()},
+            "bytes": {k: v[1] for k, v in ops.items()},
+            "state": per_device}
+
+
+def _fsdp_setup(torch, dev, cfg, run, seq: int):
+    """The seeded state, the (FSDP_DP, TP_N) mesh of ``dev`` repeated, the
+    FSDP and the tensor-parallel state specs, the optimizer and a batch of
+    B FSDP_B x S ``seq``."""
+    from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding
+    from repro_torch.train import loop, optim
+
+    opt = optim.adamw(optim.warmup_cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                                   TRAIN_STEPS),
+                      weight_decay=0.01, max_grad_norm=1.0)
+    corpus = SyntheticCorpus(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=FSDP_B, seed=0))
+    state = loop.init_train_state(torch.Generator(dev).manual_seed(0), cfg,
+                                  run, opt, dev)
+    mesh = make_mesh((FSDP_DP, TP_N), ("data", "model"),
+                     [dev] * (FSDP_DP * TP_N))
+    return (state, mesh, sharding.train_state_specs(state, mesh, fsdp=True),
+            sharding.train_state_specs(state, mesh), opt, corpus)
+
+
+def _whole_leaves(torch, tree):
+    """Each leaf of ``tree`` (tensors or ``Sharded``) whole, one at a
+    time, in ``tree_leaves`` order."""
+    from repro_torch.parallel import sharding
+    from repro_torch.train import optim
+
+    if sharding.sharded_leaves(tree):
+        return _unshard_leaves(torch, tree)
+    return iter(optim.tree_leaves(tree))
+
+
+def _adam_step_excess(torch, p, mu, nu, t: int, gj, gt, a, b, lr,
+                      chunk=1 << 24) -> tuple:
+    """As ``_first_step_excess``, for a step from moments ``mu``, ``nu``
+    after ``t - 1`` steps (a restored state's): the bound two AdamW steps
+    (``optim.adamw``'s b1 0.9, b2 0.999, eps 1e-8) from ``p`` land apart
+    with gradients ``gj`` and ``gt`` is ``lr |u(gj) - u(gt)|`` in float64
+    (u = m_hat / (sqrt(v_hat) + eps)), plus each side's float32 rounding of
+    u (2^-20 lr (|u(gj)| + |u(gt)|)), ``8 spacing(lr)`` and ``2
+    spacing(|p| + lr)``.  At t = 1 it is the first step's exact form."""
+    b1, b2 = 0.9, 0.999
+    c1, c2 = 1 - b1 ** t, 1 - b2 ** t
+    dev = b.device
+    lr32 = torch.tensor(lr, dtype=torch.float32)
+    fixed = 8 * (torch.nextafter(lr32, torch.tensor(math.inf)) - lr32).item()
+    worst, terms = 0.0, None
+    flat = [x.reshape(-1) for x in (p, mu, nu, gj, gt, a, b)]
+    for lo in range(0, flat[0].numel(), chunk):
+        p_, m_, v_, gj_, gt_, a_, b_ = (x[lo:lo + chunk].to(dev).double()
+                                        for x in flat)
+
+        def u(g):
+            m = b1 * m_ + (1 - b1) * g
+            v = b2 * v_ + (1 - b2) * g * g
+            return (m / c1) / (torch.sqrt(v / c2) + EPS)
+        uj, ut = u(gj_), u(gt_)
+        near = (p_.abs() + lr).float()
+        spacing = (torch.nextafter(near, torch.full_like(near, math.inf))
+                   - near).double()
+        allowed = (lr * (uj - ut).abs() + lr * 2 ** -20 * (uj.abs()
+                                                           + ut.abs())
+                   + fixed + 2 * spacing)
+        ratio = (b_ - a_).abs() / allowed
+        i = int(ratio.argmax())
+        if ratio[i].item() > worst or terms is None:
+            worst = ratio[i].item()
+            terms = {"diff": (b_ - a_).abs()[i].item(),
+                     "lr |du|": lr * (uj - ut).abs()[i].item(),
+                     "allowed": allowed[i].item(), "p": p_[i].item()}
+    return worst, terms
+
+
+def _fsdp_bound(torch, what, p_tree, gj, gt, a, b_tree, lr,
+                moments=None) -> float:
+    """The largest |b - a| over Adam's first-step bound, leaf by leaf
+    (``_first_step_excess``), from params ``p_tree`` with the two sides'
+    gradients ``gj`` and ``gt`` (lists of whole leaves, each side clipped
+    by its global norm at 1.0) and new params ``a`` (a list) and
+    ``b_tree`` (the trees: tensors or ``Sharded``); with ``moments`` (the
+    lists of whole ``mu`` and ``nu`` leaves and the step t they make), the
+    bound of a step from those moments (``_adam_step_excess``).  Fails
+    above 1."""
+    norms = [math.sqrt(sum(float(x.double().square().sum()) for x in g))
+             for g in (gj, gt)]
+    clip = [min(1.0, 1.0 / (n + 1e-12)) for n in norms]
+    worst, at = 0.0, None
+    mu, nu, t = moments or ([None] * len(gj), [None] * len(gj), 1)
+    for path, p, m, v, x, y, a_, b_ in zip(
+            _leaf_paths(p_tree), _whole_leaves(torch, p_tree), mu, nu, gj,
+            gt, a, _whole_leaves(torch, b_tree)):
+        if moments is None:
+            ratio, terms = _first_step_excess(
+                torch, p, x * clip[0], y * clip[1], a_, b_, lr)
+        else:
+            ratio, terms = _adam_step_excess(
+                torch, p, m, v, t, x * clip[0], y * clip[1], a_, b_, lr)
+        if at is None or ratio > worst:
+            worst, at = ratio, (path, terms)
+    if not worst <= 1.0:
+        raise CheckFailed(f"{what}: a new param is {worst:.3f}x Adam's "
+                          f"first-step bound ({at})")
+    return worst
+
+
+def run_fsdp_path(torch, dev, counters) -> dict:
+    """Phase 14, FSDP over the card repeated, seeded weights at
+    ``RunConfig(tp=2)``, TF32 off: (a) qwen2-1.5b's train config over a
+    (2, 2) FSDP mesh against the (2, 2) tensor-parallel step; (b)
+    mamba2-370m fp32 the same way; (c) elastic restore of an FSDP
+    checkpoint onto FSDP, tensor-parallel and one-device layouts.  Returns
+    the FSDP steps' launches of flash_attention and ssd_scan."""
+    t0 = time.perf_counter()
+    took = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        got = fn(*args)
+        took[name] = round(time.perf_counter() - t, 1)
+        return got
+
+    out = {FSDP_FLASH: timed("a", fsdp_qwen, torch, dev, counters)}
+    out[FSDP_SSD] = timed("b", fsdp_mamba, torch, dev, counters)
+    timed("c", fsdp_elastic, torch, dev)
+    print(f"fsdp: the phase took {time.perf_counter() - t0:.1f} s (seconds "
+          f"a sub-phase: {json.dumps(took)})", flush=True)
+    return out
+
+
+def fsdp_qwen(torch, dev, counters) -> int:
+    """(a) qwen2-1.5b at full width and depth with phase 11 (b)'s train
+    config (bf16 compute, remat, fp32 params, ce_chunk), B FSDP_B x S
+    TRAIN_SEQ over a (2, 2) mesh of the card repeated, placed by
+    ``train_state_specs(fsdp=True)`` (the dry run's layout, the default
+    ``min_fsdp_elems``), against the (2, 2) tensor-parallel step from the
+    same state.  Gates: the loss within 1e-5 relative; every gradient leaf
+    within 1e-5 of its largest; params within Adam's first-step bound;
+    FSDP_STEPS - 1 more steps, the last loss below step 0's; flash
+    launched 2 (remat) x layers x 2 shards x 2 rows a step; the logged
+    all-gathers and reduce-scatters of a step = ``_fsdp_reckoning``.
+    Printed: walls, busy, idle share, the steps' peaks above the memory
+    before them, and the reckoned bytes a device holds on a mesh of
+    distinct cards.  Returns a step's flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.parallel import collectives
+    from repro_torch.train import loop, optim
+
+    cfg = get_config("qwen2-1.5b")
+    run = RunConfig(tp=TP_N, compute_dtype="bfloat16", remat=True,
+                    ce_chunk=TRAIN_CE_CHUNK)
+    marks = [time.perf_counter()]
+    state, mesh, specs, tp_specs, opt, corpus = _fsdp_setup(
+        torch, dev, cfg, run, TRAIN_SEQ)
+    reck = _fsdp_reckoning(state.params, specs.params, FSDP_DP, TP_N, True)
+    tp_state = _fsdp_reckoning(state.params, tp_specs.params, FSDP_DP, TP_N,
+                               True)["state"]
+    batch = corpus.batch_at(0)
+    vg = loop.tensor_parallel_value_and_grad(cfg, run, mesh)
+    tp = loop.shard_train_state(state, mesh, tp_specs)
+    l_tp, g = vg(tp.params, batch)
+    g_tp = list(_unshard_leaves(torch, g))
+    del g
+    torch.cuda.empty_cache()
+    step_tp = loop.make_train_step(cfg, run, opt, mesh=mesh)
+    holder = {}
+    marks.append(time.perf_counter())
+
+    def measured(step, st, b, profile: bool):
+        # (wall ms, busy ms, idle share, peak GiB above the state before)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run = lambda: holder.update(zip(("state", "m"), step(st, b)))
+        if profile:
+            wall, busy, idle = _tp_idle(torch, run)
+        else:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall, busy, idle = (time.perf_counter() - t0) * 1e3, None, None
+        return (wall, busy, idle,
+                (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+
+    w_tp = measured(step_tp, tp, batch, False)
+    m_tp = float(holder["m"]["loss"])
+    a_tp = list(_unshard_leaves(torch, holder.pop("state").params))
+    holder.clear()
+    del tp
+    marks.append(time.perf_counter())
+    fs = loop.shard_train_state(state, mesh, specs)
+    del state
+    torch.cuda.empty_cache()
+    step = loop.make_train_step(cfg, run, opt, mesh=mesh, shardings=specs)
+    for c in counters.values():
+        c.reset()
+    collectives.LOG.reset()
+    l_f, g_f = vg(fs.params, batch)
+    logged_g = collectives.LOG.summary()
+    flash_g = counters["flash_attention"].value
+    worst_g = _grads_per_leaf_close(
+        "fsdp (a) the FSDP gradient against the TP step's",
+        list(_unshard_leaves(torch, g_f)), g_tp)
+    rel = abs(l_f.item() - l_tp.item()) / abs(l_tp.item())
+    for c in counters.values():
+        c.reset()
+    collectives.LOG.reset()
+    w_f = measured(step, fs, batch, True)
+    logged = collectives.LOG.summary()
+    flash = [counters["flash_attention"].value]
+    new, m = holder.pop("state"), holder.pop("m")
+    losses, walls = [float(m["loss"])], [w_f[0] / 1e3]
+    lr = float(optim.warmup_cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                            TRAIN_STEPS)(1))
+    worst_p = _fsdp_bound(torch, "fsdp (a) the FSDP step against the TP "
+                          "step's", fs.params, g_tp,
+                          list(_unshard_leaves(torch, g_f)), a_tp,
+                          new.params, lr)
+    del g_f, g_tp, a_tp, fs
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    for i in range(1, FSDP_STEPS):
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, m = step(new, corpus.batch_at(i))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        flash.append(counters["flash_attention"].value)
+    del new
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    split = [round(b - a, 1) for a, b in zip(marks, marks[1:])]
+    want_flash = 2 * cfg.n_layers * TP_N * FSDP_DP
+    gathers = {k: {op: logged[k].get(op, 0) for op in reck["counts"]}
+               for k in ("counts", "bytes")}
+    reckoned = {k: reck[k] for k in ("counts", "bytes")}
+    print(f"fsdp (a) {cfg.arch} over a ({FSDP_DP}, {TP_N}) mesh of {dev} "
+          f"repeated, FSDP (train_state_specs(fsdp=True)), B {FSDP_B} x S "
+          f"{TRAIN_SEQ}, bf16 compute, remat: loss {l_f.item():.6f} against "
+          f"the (2, 2) TP step's {l_tp.item():.6f} ({rel:.3e} relative, "
+          f"gate 1e-5; the steps' {losses[0]:.6f} and {m_tp:.6f}), "
+          f"gradients within {worst_g:.3e} of each leaf's largest (gate "
+          f"1e-5), new params at {worst_p:.4f} of Adam's first-step bound "
+          f"(gate 1); losses {' '.join(f'{x:.4f}' for x in losses)}; step "
+          f"walls s {' '.join(f'{x:.4f}' for x in walls)}; the first "
+          f"profiled: device busy {w_f[1]:.1f} ms, idle share {w_f[2]:.4f} "
+          f"(the TP step's wall {w_tp[0]:.1f} ms, not profiled); peak above "
+          f"the state before it "
+          f"{w_f[3]:.2f} GiB (the TP step's {w_tp[3]:.2f} GiB; on one card "
+          f"every piece shares one HBM, so this shows no saving); "
+          f"flash_attention launched {flash} (gate {want_flash} a step); "
+          f"a step's logged all-gathers and reduce-scatters "
+          f"{json.dumps(gathers)} (reckoned {json.dumps(reckoned)}; "
+          f"the gradient alone logged {json.dumps(logged_g)}); reckoned "
+          f"bytes of params + moments + gradients a device on a mesh of "
+          f"{FSDP_DP * TP_N} distinct cards: FSDP {reck['state']} "
+          f"({reck['state'] / 1e9:.3f} GB) against the tensor-parallel "
+          f"layout's {tp_state} ({tp_state / 1e9:.3f} GB); seconds: set-up "
+          f"and the TP gradient {split[0]}, the TP step {split[1]}, the FSDP "
+          f"gradient, step and checks {split[2]}, {FSDP_STEPS - 1} more "
+          f"steps {split[3]}", flush=True)
+    if not rel <= 1e-5:
+        raise CheckFailed(f"fsdp (a): loss {l_f.item()} against the TP "
+                          f"step's {l_tp.item()}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise CheckFailed(f"fsdp (a): losses {losses} do not fall")
+    if any(n != want_flash for n in flash) or flash_g != want_flash:
+        raise CheckFailed(f"fsdp (a): flash_attention launched {flash} "
+                          f"(the gradient {flash_g})")
+    if gathers != reckoned:
+        raise CheckFailed(f"fsdp (a): logged {gathers}, reckoned {reckoned}")
+    return flash[0]
+
+
+def fsdp_mamba(torch, dev, counters) -> int:
+    """(b) mamba2-370m at full width and depth, fp32 with remat, B FSDP_B
+    x S TRAIN_SEQ over the (2, 2) FSDP mesh: the packed
+    ``in_proj``/``conv_w`` gathered over "data", then picked over "model"
+    (``tensor.gather_pick``).  Gates, against the (2, 2) tensor-parallel
+    run from the same state: the loss within 1e-5 relative; every gradient
+    leaf within 1e-5 of its largest; one step's params within Adam's
+    first-step bound; ssd_scan launched 2 (remat) x layers x 2 shards x 2
+    rows a step.  Returns a step's ssd_scan launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.parallel import fsdp, sharding
+    from repro_torch.train import loop, optim
+
+    cfg = get_config("mamba2-370m")
+    run = RunConfig(tp=TP_N, remat=True)
+    state, mesh, specs, tp_specs, opt, corpus = _fsdp_setup(
+        torch, dev, cfg, run, TRAIN_SEQ)
+    batch = corpus.batch_at(0)
+    vg = loop.tensor_parallel_value_and_grad(cfg, run, mesh)
+    tp = loop.shard_train_state(state, mesh, tp_specs)
+    l_tp, g = vg(tp.params, batch)
+    g_tp = list(_unshard_leaves(torch, g))
+    del g
+    new, _ = loop.make_train_step(cfg, run, opt, mesh=mesh)(tp, batch)
+    a_tp = list(_unshard_leaves(torch, new.params))
+    del new, tp
+    fs = loop.shard_train_state(state, mesh, specs)
+    del state
+    cut = [p for p, sh in zip(_leaf_paths(fs.params),
+                              sharding.sharded_leaves(fs.params))
+           if fsdp.cut_dim(sh) is not None]
+    for c in counters.values():
+        c.reset()
+    l_f, g_f = vg(fs.params, batch)
+    n_grad = counters["ssd_scan"].value
+    worst_g = _grads_per_leaf_close(
+        "fsdp (b) the FSDP gradient against the TP step's",
+        list(_unshard_leaves(torch, g_f)), g_tp)
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, m = loop.make_train_step(cfg, run, opt, mesh=mesh,
+                                  shardings=specs)(fs, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_ssd = counters["ssd_scan"].value
+    lr = float(optim.warmup_cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                            TRAIN_STEPS)(1))
+    worst_p = _fsdp_bound(torch, "fsdp (b) the FSDP step against the TP "
+                          "step's", fs.params, g_tp,
+                          list(_unshard_leaves(torch, g_f)), a_tp,
+                          new.params, lr)
+    rel = abs(l_f.item() - l_tp.item()) / abs(l_tp.item())
+    del g_f, g_tp, a_tp, fs, new
+    torch.cuda.empty_cache()
+    want = 2 * cfg.n_layers * TP_N * FSDP_DP
+    print(f"fsdp (b) {cfg.arch} over a ({FSDP_DP}, {TP_N}) FSDP mesh, fp32, "
+          f"remat, B {FSDP_B} x S {TRAIN_SEQ}: cut over data "
+          f"{', '.join(cut)}; loss {l_f.item():.6f} against the TP step's "
+          f"{l_tp.item():.6f} ({rel:.3e} relative, gate 1e-5), gradients "
+          f"within {worst_g:.3e} of each leaf's largest (gate 1e-5), new "
+          f"params at {worst_p:.4f} of Adam's first-step bound (gate 1), "
+          f"step wall {wall:.3f} s (loss {float(m['loss']):.6f}); ssd_scan "
+          f"launched {n_grad} by the gradient and {n_ssd} by the step (gate "
+          f"{want})", flush=True)
+    if not rel <= 1e-5:
+        raise CheckFailed(f"fsdp (b): loss {l_f.item()} against the TP "
+                          f"step's {l_tp.item()}")
+    if n_ssd != want or n_grad != want:
+        raise CheckFailed(f"fsdp (b): ssd_scan launched {n_grad}, {n_ssd}")
+    if not any("in_proj" in p for p in cut) or not any("conv_w" in p
+                                                        for p in cut):
+        raise CheckFailed(f"fsdp (b): the packed leaves are not cut ({cut})")
+    return n_ssd
+
+
+def fsdp_elastic(torch, dev) -> None:
+    """(c) qwen2-1.5b at full width and FSDP_ELASTIC_LAYERS of its 28
+    layers (a depth cut), (a)'s train config over the (2, 2) FSDP mesh:
+    one step, ``save`` (blocking) to a temporary directory, then one
+    further step after ``restore(mesh=, shardings=)`` onto FSDP (2, 2)
+    (gate: gradient, loss and step bit for bit with the uninterrupted
+    run), onto tensor-parallel (1, 2) and with ``device=`` onto one device.
+    Gates of those two: each gradient leaf within 1e-5 of the uninterrupted
+    run's largest, or 1.5x the leaf's bf16 floor (how far the uninterrupted
+    bf16 gradient lies from the same layout's fp32-compute gradient); the
+    loss within 1e-5 relative (one device: or 1.5x the loss's bf16 floor);
+    the new params within Adam's first-step bound of the uninterrupted
+    run, from the two sides' gradients and the restored moments
+    (``_adam_step_excess``, Adam's first-step bound carried to a step from
+    moments).  Printed: save and restore seconds, bytes written."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.train import loop, optim
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              n_layers=FSDP_ELASTIC_LAYERS)
+    run = RunConfig(tp=TP_N, compute_dtype="bfloat16", remat=True,
+                    ce_chunk=TRAIN_CE_CHUNK)
+    state, mesh, specs, _, opt, corpus = _fsdp_setup(torch, dev, cfg, run,
+                                                     TRAIN_SEQ)
+    step = loop.make_train_step(cfg, run, opt, mesh=mesh, shardings=specs)
+    first, _ = step(state, corpus.batch_at(0))
+    del state
+    batch = corpus.batch_at(1)
+    work = tempfile.mkdtemp(prefix="fsdp_ckpt_")
+    try:
+        mgr = CheckpointManager(work, async_save=False, device=dev)
+        t0 = time.perf_counter()
+        mgr.save(1, first, blocking=True)
+        save_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(r, f))
+                      for r, _, fs in os.walk(work) for f in fs)
+        l_u, g = loop.tensor_parallel_value_and_grad(cfg, run, mesh)(
+            first.params, batch)
+        g_u = list(_unshard_leaves(torch, g))
+        # the bf16 floor: the uninterrupted layout in fp32 compute
+        l_32, g = loop.tensor_parallel_value_and_grad(
+            cfg, dataclasses.replace(run, compute_dtype="float32"), mesh)(
+            first.params, batch)
+        floors = [(x - y).abs().max().item()
+                  / max(y.abs().max().item(), 1e-30)
+                  for x, y in zip(g_u, _unshard_leaves(torch, g))]
+        floor_l = abs(l_u.item() - l_32.item()) / abs(l_32.item())
+        paths = _leaf_paths(first.params)
+        want, m_u = step(first, batch)
+        want_p = list(_unshard_leaves(torch, want.params))
+        del g, want
+        mesh12 = make_mesh((1, TP_N), ("data", "model"), [dev] * TP_N)
+        specs12 = sharding.train_state_specs(first, mesh12)
+        p0 = sharding.unshard_params(first.params)
+        moments = ([x.cpu() for x in _unshard_leaves(torch, first.opt.mu)],
+                   [x.cpu() for x in _unshard_leaves(torch, first.opt.nu)],
+                   2)
+        del first
+        torch.cuda.empty_cache()
+        lr = float(optim.warmup_cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                                TRAIN_STEPS)(2))
+        restore_s, bound, losses, grad, rel = {}, {}, {}, {}, {}
+        layouts = {"fsdp (2, 2)": dict(mesh=mesh, shardings=specs),
+                   "tp (1, 2)": dict(mesh=mesh12, shardings=specs12),
+                   "one device": dict(device=dev)}
+        for name, where in layouts.items():
+            t0 = time.perf_counter()
+            _, st = mgr.restore(**where)
+            torch.cuda.synchronize()
+            restore_s[name] = round(time.perf_counter() - t0, 3)
+            if name == "one device":
+                l, g = loop.value_and_grad(cfg, run)(st.params, batch)
+                g = optim.tree_leaves(g)
+                new, m = loop.make_train_step(cfg, run, opt)(st, batch)
+            else:
+                m_ = where["mesh"]
+                l, g = loop.tensor_parallel_value_and_grad(cfg, run, m_)(
+                    st.params, batch)
+                g = list(_unshard_leaves(torch, g))
+                new, m = loop.make_train_step(
+                    cfg, run, opt, mesh=m_,
+                    shardings=where["shardings"])(st, batch)
+            losses[name] = float(m["loss"])
+            rel[name] = abs(l.item() - l_u.item()) / abs(l_u.item())
+            if name == "fsdp (2, 2)":
+                same = all(torch.equal(x, y) for x, y in zip(
+                    _unshard_leaves(torch, new.params), want_p))
+                same &= all(torch.equal(x, y) for x, y in zip(g, g_u))
+                if not same or losses[name] != float(m_u["loss"]):
+                    raise CheckFailed(f"fsdp (c): the FSDP restore's step is "
+                                      f"not the uninterrupted one bit for "
+                                      f"bit (loss {losses[name]} against "
+                                      f"{float(m_u['loss'])})")
+            else:
+                lim_l = (1e-5 if name == "tp (1, 2)"
+                         else max(1e-5, 1.5 * floor_l))
+                if not rel[name] <= lim_l:
+                    raise CheckFailed(f"fsdp (c): the loss restored onto "
+                                      f"{name} {l.item()} is {rel[name]:.3e} "
+                                      f"from the uninterrupted {l_u.item()} "
+                                      f"(gate {lim_l:.3e})")
+                limits = [max(1e-5, 1.5 * f) for f in floors]
+                grad[name] = round(max(
+                    _grads_per_leaf_close(
+                        f"fsdp (c) the gradient restored onto {name}, "
+                        f"{path}", [x], [y], frac=lim) / lim
+                    for path, x, y, lim in zip(paths, g, g_u, limits)), 4)
+                bound[name] = round(_fsdp_bound(
+                    torch, f"fsdp (c) the step restored onto {name}", p0,
+                    g_u, g, want_p, new.params, lr, moments), 4)
+            del st, new, g
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"fsdp (c) {cfg.arch} at {FSDP_ELASTIC_LAYERS} of 28 layers (a "
+          f"depth cut), full width, FSDP ({FSDP_DP}, {TP_N}): save "
+          f"{save_s:.3f} s, {written} bytes written; restore s "
+          f"{json.dumps(restore_s)}; the further step's loss "
+          f"{json.dumps(losses)} (uninterrupted {float(m_u['loss']):.6f}; "
+          f"FSDP bit for bit), the gradient's loss relative to the "
+          f"uninterrupted {json.dumps(rel)} (gate 1e-5; one device: or 1.5x "
+          f"the bf16 floor {floor_l:.3e}); gradients at {json.dumps(grad)} "
+          f"of their gate (gate 1: 1e-5 of a leaf's largest or 1.5x its "
+          f"bf16 floor, {min(floors):.3e}-{max(floors):.3e}); new params at "
+          f"{json.dumps(bound)} of Adam's bound from the restored moments "
+          f"and the two sides' gradients (gate 1)", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -5619,11 +6204,14 @@ def main() -> int:
                               dev, counters))
         launches.update(timed("tp compression", run_tp_compression_path,
                               torch, dev, counters, rows))
+        fsdp_launches = timed("fsdp", run_fsdp_path, torch, dev, counters)
     except (CheckFailed, AssertionError) as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     for key, n in launches.items():
         rows[key]["launches"] = n
+    for key, n in fsdp_launches.items():
+        rows[key]["fsdp_launches"] = n
     print(f"phases s: {json.dumps(phases)}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -27,7 +27,9 @@ families: their batches need a frontend (``vision_embeds``, ``frames``)
 that the token pipeline does not make.  ``--resume`` reads a step directory written by
 this launcher (with any ``--tp``: the arrays, the compression's error
 buffers among them, are whole) or by the JAX package's
-(``runtime.checkpoint``), and shards it over the mesh.
+(``runtime.checkpoint``), placed over the mesh by the step's state specs
+(``CheckpointManager.restore(mesh=, shardings=)``, as the JAX launcher
+resumes).
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ from repro_torch.data.tokens import SyntheticCorpus, TokenPipelineConfig
 from repro_torch.launch.mesh import dp_size, make_host_mesh
 from repro_torch.launch.serve import FRONTENDS
 from repro_torch.models.registry import reduced_config
+from repro_torch.parallel.sharding import train_state_specs
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.failures import ResilientRunner
 from repro_torch.train import optim
@@ -115,10 +118,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                       weight_decay=0.01, max_grad_norm=1.0)
     state = init_train_state(torch.Generator(device).manual_seed(args.seed),
                              cfg, run, opt, device)
-    if args.tp > 1:
-        state = shard_train_state(state, mesh)
+    # the tensor-parallel placement (JAX's launcher: param_partition_specs
+    # at --tp, no FSDP); at --tp 1 the state stays whole on the first device
+    state_specs = train_state_specs(state, mesh) if args.tp > 1 else None
+    if state_specs is not None:
+        state = shard_train_state(state, mesh, state_specs)
     step_fn = make_train_step(cfg, run, opt, microbatches=args.microbatches,
-                              mesh=mesh)
+                              mesh=mesh, shardings=state_specs)
     corpus = SyntheticCorpus(TokenPipelineConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
         seed=args.seed))
@@ -128,9 +134,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         retention=3, device=device)
     start = 0
     if args.resume and ckpt.latest_step() is not None:
-        start, state = ckpt.restore()
-        if args.tp > 1:
-            state = shard_train_state(state, mesh)
+        start, state = ckpt.restore(mesh=mesh, shardings=state_specs)
         print(f"resumed at step {start}")
 
     runner = ResilientRunner(

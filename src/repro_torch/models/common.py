@@ -16,7 +16,10 @@ Under tensor parallelism the params of each ``"model"`` shard come as a
 (``shardwise``), the embedding, the LM head and the cross-entropy are
 vocab-parallel, and the layer stack walks every shard's stack at once.  A
 model's ``forward`` and ``train_loss`` run under :func:`tp_rules`, and its
-decode refuses split params (:func:`refuse_sharded_decode`).
+decode refuses split params (:func:`refuse_sharded_decode`).  Under FSDP a
+stacked leaf cut over the ``"data"`` axis comes as a
+``parallel.fsdp.RowView``, which :func:`apply_stack` gathers at the layer
+that uses it (inside :func:`remat`'s checkpoint where the body has one).
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel import sharding
+from repro_torch.parallel import fsdp, sharding
 from repro_torch.parallel import tensor as tp
 from repro_torch.parallel.tensor import Shards, shardwise
 
@@ -200,7 +203,7 @@ def _gelu_mlp(s: int, params: dict, x: Tensor) -> Tensor:
 
 def layer(tree, i: int):
     """Slice ``i`` of the leading (stacked-layer) axis of every leaf (of
-    every shard's tree, for a ``Shards``)."""
+    every shard's tree, for a ``Shards``; of a ``RowView``'s pieces)."""
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
     if isinstance(tree, Shards):
@@ -210,10 +213,14 @@ def layer(tree, i: int):
 
 def apply_stack(body: Callable, carry, xs):
     """Run ``body(carry, layer_slice) -> carry`` over the leading axis of
-    ``xs``: the Python loop that takes the place of ``jax.lax.scan``."""
+    ``xs``: the Python loop that takes the place of ``jax.lax.scan``.  The
+    slice's FSDP views with no stacked axis left are gathered for the body
+    (``fsdp.at_use``), by the body itself where :func:`remat` wraps it."""
     n = next(iter(_leaves(xs))).shape[0]
+    gathers = getattr(body, "gathers_at_use", False)
     for i in range(n):
-        carry = body(carry, layer(xs, i))
+        sl = layer(xs, i)
+        carry = body(carry, sl if gathers else fsdp.at_use(sl))
     return carry
 
 
@@ -229,15 +236,18 @@ def remat(body: Callable, run) -> Callable:
 
     def wrapped(*args):
         if not torch.is_grad_enabled():
-            return body(*args)
+            return body(*fsdp.at_use(args))
         # the recompute runs in the backward, after the forward's
         # activation rules (tensor parallelism's boundaries) are gone
         rules = sharding.active_rules()
 
         def again(*a):
+            # FSDP's gathers inside the checkpoint: none is kept for the
+            # backward, whose recompute gathers again
             with sharding.activation_sharding(rules):
-                return body(*a)
+                return body(*fsdp.at_use(a))
         return checkpoint(again, *args, use_reentrant=False)
+    wrapped.gathers_at_use = True
     return wrapped
 
 

@@ -224,6 +224,32 @@ def reduce_scatter(pieces: Sequence[Tensor], dim: int,
     return out
 
 
+def scatter_add(sums: Sequence[Tensor], part: Tensor, dim: int) -> None:
+    """One input of a reduce-scatter whose inputs arrive one at a time (an
+    FSDP-cut leaf's gradient from each data row's backward, as autograd
+    produces it): slice *i* of ``part`` along ``dim`` added into
+    ``sums[i]`` on its device.  Nothing is logged; ``scattered`` logs the
+    op once its inputs are in."""
+    c = part.shape[dim] // len(sums)
+    for i, acc in enumerate(sums):
+        acc.add_(_to(part.narrow(dim, i * c, c), acc.device))
+
+
+def scattered(sums: Sequence[Tensor], n: int, op: str = "sum") -> list:
+    """The end of a reduce-scatter of ``n`` inputs that ``scatter_add``
+    summed into ``sums`` (each shard's slice, on its device): the sums, or
+    for ``"mean"`` the sums divided by ``n`` in place, logged as one
+    reduce-scatter of one shard's slice, as ``reduce_scatter`` logs it."""
+    if op not in ("sum", "mean"):
+        raise ValueError(f"scattered op {op!r} not in ('sum', 'mean')")
+    if op == "mean":
+        for acc in sums:
+            acc.div_(n)
+    if n > 1:
+        LOG.record("reduce-scatter", _nbytes(sums[0]))
+    return list(sums)
+
+
 def permute(pieces: Sequence, pairs: Sequence[tuple],
             devices: Sequence) -> list:
     """``out[dst]`` = shard ``src``'s piece on ``devices[dst]``, for each

@@ -10,7 +10,9 @@ imports nothing of it.
 ``shard_tensor`` and ``unshard`` take the place of ``NamedSharding`` and
 ``jax.device_put``: the pieces of a tensor are exactly the
 ``addressable_shards`` data a ``NamedSharding`` with the same spec gives
-over a JAX mesh of the same shape.
+over a JAX mesh of the same shape.  ``place_tree`` puts a tree onto a mesh
+by a tree of specs (a train state by ``train_state_specs``, a restored
+checkpoint by the caller's), with or without FSDP's cut over ``"data"``.
 
 The activation constraints are the JAX package's: ``constrain(x, kind)`` is
 a no-op unless rules are installed with ``activation_sharding(...)``, so
@@ -201,6 +203,13 @@ def _shape(leaf) -> tuple:
     return tuple(getattr(leaf, "shape", ()))
 
 
+def stack_depth(path: str,
+                scanned_prefixes: tuple = SCANNED_PREFIXES) -> int:
+    """How many stacked-layer axes lead a param at ``path`` (the VLM's
+    ``groups/selfs``: 2)."""
+    return sum(seg in scanned_prefixes for seg in path.split("/"))
+
+
 def param_partition_specs(params, scanned_prefixes: tuple = SCANNED_PREFIXES,
                           *, fsdp_axis: Optional[str] = None,
                           fsdp_size: int = 0, min_fsdp_elems: int = 65536,
@@ -219,7 +228,7 @@ def param_partition_specs(params, scanned_prefixes: tuple = SCANNED_PREFIXES,
     """
     def spec(p: str, leaf) -> P:
         shape = _shape(leaf)
-        n_stack = sum(seg in scanned_prefixes for seg in p.split("/"))
+        n_stack = stack_depth(p, scanned_prefixes)
         parts = list(param_spec_for_path(p, len(shape), scanned=n_stack))
         if tp_size > 1 and re.search(r"moe/w_(gate|in|out)$", p):
             e_dim = n_stack
@@ -484,12 +493,118 @@ def shard_leaf(t: Tensor, spec, mesh: Mesh) -> Sharded:
     return out
 
 
+def place(t: Tensor, spec, mesh: Mesh):
+    """``t`` placed on ``mesh`` by ``spec``: a ``Sharded`` (``shard_leaf``),
+    or, for a 0-dim tensor (a step counter), the tensor on the mesh's first
+    device, where every shard reads it (its spec must be ``P()``)."""
+    if t.ndim == 0:
+        if any(e is not None for e in spec):
+            raise ValueError(f"spec {tuple(spec)} cuts a 0-dim tensor")
+        return t.to(mesh.devices.flat[0])
+    return shard_leaf(t, spec, mesh)
+
+
+class NamedSharding:
+    """A spec bound to a mesh, as ``jax.sharding.NamedSharding``: a leaf of
+    a spec tree that names its own mesh."""
+
+    __slots__ = ("mesh", "spec")
+
+    def __init__(self, mesh: Mesh, spec):
+        self.mesh, self.spec = mesh, P(*spec)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh.shape}, {self.spec!r})"
+
+
+def is_spec(x) -> bool:
+    """Whether ``x`` is a leaf of a spec tree."""
+    return isinstance(x, (PartitionSpec, NamedSharding))
+
+
+def place_tree(tree, specs, mesh: Optional[Mesh] = None, path: str = ""):
+    """``tree`` (tensors in dicts, lists and ``NamedTuple``s) with each
+    tensor ``place``d by the spec at its place in ``specs``, over ``mesh``
+    or the mesh of a ``NamedSharding``.  A ``ValueError`` names the first
+    place where the two trees differ, and a spec that does not divide its
+    dim (``shard_tensor``)."""
+    where = path or "the tree's root"
+    if is_spec(specs):
+        if not isinstance(tree, Tensor):
+            raise ValueError(f"{where}: a spec {specs!r} where the tree "
+                             f"holds {type(tree).__name__}")
+        if isinstance(specs, NamedSharding):
+            mesh, specs = specs.mesh, specs.spec
+        if mesh is None:
+            raise ValueError(f"{where}: a PartitionSpec without a mesh")
+        return place(tree, specs, mesh)
+    if tree is None or specs is None:
+        if tree is None and specs is None:
+            return None
+        raise ValueError(f"{where}: the tree holds {type(tree).__name__} "
+                         f"where the specs hold {type(specs).__name__}")
+    if isinstance(tree, dict):
+        if not isinstance(specs, dict) or set(tree) != set(specs):
+            theirs = (sorted(specs) if isinstance(specs, dict)
+                      else type(specs).__name__)
+            raise ValueError(f"{where}: keys {sorted(tree)} against the "
+                             f"specs' {theirs}")
+        return {k: place_tree(v, specs[k], mesh, f"{path}/{k}")
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        if getattr(specs, "_fields", None) != tree._fields:
+            raise ValueError(f"{where}: {type(tree).__name__} against the "
+                             f"specs' {type(specs).__name__}")
+        return type(tree)(*(place_tree(v, o, mesh, f"{path}/.{f}")
+                            for f, v, o in zip(tree._fields, tree, specs)))
+    if isinstance(tree, (list, tuple)):
+        if not isinstance(specs, (list, tuple)) or len(specs) != len(tree):
+            raise ValueError(f"{where}: {len(tree)} items against the "
+                             f"specs' {type(specs).__name__}")
+        return type(tree)(place_tree(v, o, mesh, f"{path}/{i}")
+                          for i, (v, o) in enumerate(zip(tree, specs)))
+    raise ValueError(f"{where}: a {type(tree).__name__} where the specs "
+                     f"hold {type(specs).__name__}")
+
+
 def shard_params(params, mesh: Mesh, tp_size: int):
     """``params`` (or a tree of their shapes, Adam's moments) as a tree of
     ``Sharded`` leaves, by ``param_partition_specs(params,
-    tp_size=tp_size)``."""
-    specs = param_partition_specs(params, tp_size=tp_size)
-    return _zip_map(lambda t, spec: shard_leaf(t, spec, mesh), params, specs)
+    tp_size=tp_size)``; FSDP's placement is ``train_state_specs(...,
+    fsdp=True)`` through ``place_tree``."""
+    return place_tree(params, param_partition_specs(params, tp_size=tp_size),
+                      mesh)
+
+
+def train_state_specs(state, mesh: Mesh, *, fsdp: bool = False,
+                      min_fsdp_elems: int = 65536):
+    """The train state of specs that the JAX package's dry run builds for
+    its ``in_shardings`` (``launch/dryrun.py``): the params and each of the
+    optimizer's param-shaped trees by ``param_partition_specs`` at the
+    mesh's model axis (with ``fsdp``, also cut over ``"data"``), the step
+    counters replicated; the compression's error buffers as the params,
+    its basis replicated.  ``state`` is a ``train.loop.TrainState`` of
+    tensors or of ``Sharded`` leaves (their whole shapes are read)."""
+    pspecs = param_partition_specs(
+        state.params, tp_size=mesh.shape.get("model", 1),
+        fsdp_axis="data" if fsdp else None,
+        fsdp_size=mesh.shape.get("data", 1), min_fsdp_elems=min_fsdp_elems)
+    opt = state.opt
+    gc = state.gc
+    if gc is not None:
+        gc = gc._replace(basis=P(), error=pspecs, step=P())
+    return state._replace(
+        params=pspecs, opt=type(opt)(*(P() if f == "step" else pspecs
+                                       for f in opt._fields)),
+        gc=gc, step=P())
+
+
+def spec_axes(spec) -> set:
+    """The mesh axes that ``spec`` names."""
+    out = set()
+    for entry in spec:
+        out |= {entry} if isinstance(entry, str) else set(entry or ())
+    return out
 
 
 def unshard_params(tree):
@@ -498,9 +613,12 @@ def unshard_params(tree):
     return map_sharded(lambda s: unshard(s.pieces, s.spec, s.mesh), tree)
 
 
-def map_sharded(fn, tree):
-    """``fn`` of each ``Sharded`` leaf of ``tree``; other leaves as they
-    are."""
+def map_sharded(fn, tree, *, with_path: bool = False):
+    """``fn`` of each ``Sharded`` leaf of ``tree`` (``fn(path, leaf)`` with
+    ``with_path``); other leaves as they are."""
+    if with_path:
+        return _map_with_path(lambda p, x: fn(p, x)
+                              if isinstance(x, Sharded) else x, tree)
     return _map_with_path(lambda _p, x: fn(x) if isinstance(x, Sharded)
                           else x, tree)
 
@@ -514,12 +632,3 @@ def sharded_leaves(tree) -> list:
         return [x for item in tree for x in sharded_leaves(item)]
     return [tree] if isinstance(tree, Sharded) else []
 
-
-def _zip_map(fn, tree, other):
-    """``fn(leaf, other_leaf)`` over two trees of one structure (the
-    second's leaves may be ``PartitionSpec``s, themselves tuples)."""
-    if isinstance(tree, dict):
-        return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)) and not isinstance(tree, Tensor):
-        return type(tree)(_zip_map(fn, v, o) for v, o in zip(tree, other))
-    return fn(tree, other)

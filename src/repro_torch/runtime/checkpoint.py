@@ -30,8 +30,10 @@ restore in the JAX package.  Cross-reading goes one way, JAX to port.
 A leaf held as ``Sharded`` pieces over a mesh (a tensor-parallel train
 state) is written whole, as the JAX package's ``np.asarray`` of a sharded
 array writes it: its pieces are copied to the host and joined there, so
-the step directory is the one-device layout, and ``restore`` gives whole
-tensors back (a tensor-parallel run shards them again).
+the step directory is the one-device layout, whatever the placement (an
+FSDP state's cuts over ``"data"`` included).  ``restore`` gives whole
+tensors back onto one device, or with ``mesh=, shardings=`` places each
+array by its spec onto any mesh (the JAX package's elastic restore).
 
 A bf16 leaf is written as its uint16 bits with ``"dtype": "bfloat16"`` in
 the manifest, the two bytes a value and the name that the JAX package
@@ -50,7 +52,10 @@ import hashlib
 import json
 import os
 import shutil
+import struct
 import threading
+import zipfile
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
 
 import numpy as np
@@ -58,6 +63,7 @@ import torch
 
 from repro_torch.core import bf16, entropy, gae
 from repro_torch.core.exec import resolve_device
+from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import Sharded
 from repro_torch.runtime.grad_compress import GradCompressionState
 from repro_torch.train.loop import TrainState
@@ -115,10 +121,33 @@ def _walk(node, keys: list, out: list) -> None:
             _walk(v, keys + [str(i)], out)
     else:
         if isinstance(node, Sharded):
-            node = node.host()
-        arr = _to_numpy(node)
+            node = node.host()      # a fresh host tensor: no second copy
+            arr = bf16.to_bits(node) if bf16.is_bf16(node) else node.numpy()
+        else:
+            arr = _to_numpy(node)
         out.append((_SEP.join(keys), arr,
                     bf16.NAME if bf16.is_bf16(node) else str(arr.dtype)))
+
+
+def _spec_paths(specs, keys: list, out: dict) -> None:
+    """``out[path]`` = each spec of a spec tree, under the paths that
+    ``_flatten_with_paths`` gives the tree's leaves."""
+    if specs is None:
+        return
+    if sharding.is_spec(specs):
+        out[_SEP.join(keys)] = specs
+    elif isinstance(specs, dict):
+        for k in sorted(specs):
+            _spec_paths(specs[k], keys + [str(k)], out)
+    elif isinstance(specs, tuple) and hasattr(specs, "_fields"):
+        for f, v in zip(specs._fields, specs):
+            _spec_paths(v, keys + ["." + f], out)
+    elif isinstance(specs, (list, tuple)):
+        for i, v in enumerate(specs):
+            _spec_paths(v, keys + [str(i)], out)
+    else:
+        raise ValueError(f"{_SEP.join(keys) or 'the root'}: "
+                         f"{type(specs).__name__} in a tree of specs")
 
 
 def _namedtuple(fields: dict):
@@ -159,7 +188,40 @@ def _unflatten_paths(leaves: list[tuple[str, Any]]) -> PyTree:
 
 
 def _sha(arr: np.ndarray) -> str:
-    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+    """The sha256 of the array's bytes in C order (the JAX package's
+    ``tobytes()`` digest), read in place where the array is contiguous."""
+    flat = np.ascontiguousarray(arr).reshape(-1)
+    return hashlib.sha256(flat.view(np.uint8)).hexdigest()
+
+
+def _shas(arrays: list) -> list:
+    """``_sha`` of each array, several at once (hashlib lets go of the GIL
+    while it hashes a large buffer)."""
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        return list(ex.map(_sha, arrays))
+
+
+def _npz_arrays(path: str, keys: list) -> dict:
+    """The arrays of an ``np.savez`` file by key, each read straight from
+    its stored bytes in the file, one copy (``np.load`` reads a member in
+    chunks through the zip reader and checks its CRC-32, which the
+    manifest's sha256 makes redundant; on an H100 machine a 3.36 GB
+    restore took twice as long).  Both packages write stored members; a
+    compressed one is an ``IOError``."""
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for key in keys:
+            info = zf.getinfo(key + ".npy")
+            if info.compress_type != zipfile.ZIP_STORED:
+                raise IOError(f"{path}: {key} is a compressed member")
+            f.seek(info.header_offset)
+            head = f.read(30)               # the member's local header
+            if head[:4] != b"PK\x03\x04":
+                raise IOError(f"{path}: no local header for {key}")
+            name_len, extra_len = struct.unpack("<HH", head[26:30])
+            f.seek(info.header_offset + 30 + name_len + extra_len)
+            out[key] = np.lib.format.read_array(f)
+    return out
 
 
 def _fsync_write(path: str, write) -> None:
@@ -236,12 +298,14 @@ class CheckpointManager:
         final = self._step_dir(step)
         tmp = f"{final}.tmp.{os.getpid()}"
         os.makedirs(tmp, exist_ok=True)
+        shas = _shas([arr for _, arr, _ in leaves])
         manifest = {"step": step, "format": "npz-v1",
                     "extra": extra or {}, "tensors": [
                         {"path": path, "key": f"t{i}",
                          "shape": list(arr.shape), "dtype": dtype,
-                         "sha256": _sha(arr)}
-                        for i, (path, arr, dtype) in enumerate(leaves)]}
+                         "sha256": sha}
+                        for i, ((path, arr, dtype), sha)
+                        in enumerate(zip(leaves, shas))]}
         _fsync_write(os.path.join(tmp, "arrays.npz"), lambda f: np.savez(
             f, **{f"t{i}": arr for i, (_, arr, _) in enumerate(leaves)}))
         _fsync_write(os.path.join(tmp, "manifest.json"), lambda f: f.write(
@@ -257,11 +321,20 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # -- restore ----------------------------------------------------------------
-    def restore(self, step: Optional[int] = None, *, device=None
-                ) -> tuple[int, PyTree]:
+    def restore(self, step: Optional[int] = None, *, device=None,
+                mesh=None, shardings=None) -> tuple[int, PyTree]:
         """Restore the given (or newest valid) step onto ``device`` (default:
-        the manager's).  Corrupt or torn steps are skipped with fallback."""
-        device = resolve_device(device if device is not None else self.device)
+        the manager's).  Corrupt or torn steps are skipped with fallback.
+
+        ``shardings``: a tree of ``PartitionSpec``s matching the saved tree
+        (over ``mesh``), or of ``sharding.NamedSharding``s (specs bound to
+        a mesh): each array is placed by its spec (``sharding.place``:
+        ``Sharded`` pieces, a 0-dim step counter on the mesh's first
+        device), the elastic restore onto any mesh, as the JAX package's.
+        Each host array is freed once its pieces exist.  A spec tree that
+        does not match the saved tree, or a spec that does not divide its
+        dim, is a ``ValueError``.  Without ``shardings``, ``mesh`` is not
+        read."""
         candidates = ([step] if step is not None
                       else list(reversed(self.all_steps())))
         last_err: Optional[Exception] = None
@@ -271,6 +344,10 @@ class CheckpointManager:
             except Exception as e:          # torn/corrupt -> try previous
                 last_err = e
                 continue
+            if shardings is not None:
+                return s, _placed(leaves, shardings, mesh)
+            device = resolve_device(device if device is not None
+                                    else self.device)
             return s, _unflatten_paths(
                 [(p, _from_numpy(a, dtype).to(device))
                  for p, a, dtype in leaves])
@@ -283,15 +360,48 @@ class CheckpointManager:
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
-        leaves = []
-        with np.load(os.path.join(d, "arrays.npz")) as data:
-            for t in manifest["tensors"]:
-                arr = data[t["key"]]
-                if _sha(arr) != t["sha256"]:
-                    raise IOError(f"hash mismatch for {t['path']} at step "
-                                  f"{step}")
-                leaves.append((t["path"], arr, t["dtype"]))
+        data = _npz_arrays(os.path.join(d, "arrays.npz"),
+                           [t["key"] for t in manifest["tensors"]])
+        leaves = [(t["path"], data.pop(t["key"]), t["dtype"])
+                  for t in manifest["tensors"]]
+        for t, sha in zip(manifest["tensors"],
+                          _shas([arr for _, arr, _ in leaves])):
+            if sha != t["sha256"]:
+                raise IOError(f"hash mismatch for {t['path']} at step "
+                              f"{step}")
         return leaves
+
+
+def _placed(leaves: list, shardings, mesh) -> PyTree:
+    """The tree of ``leaves`` ((path, host array, dtype), emptied as it
+    goes) with each array placed by its spec in ``shardings``."""
+    specs: dict = {}
+    _spec_paths(shardings, [], specs)
+    saved = [p for p, _, _ in leaves]
+    if set(saved) != set(specs):
+        raise ValueError(
+            f"the shardings do not match the saved tree: saved but without "
+            f"a spec {sorted(set(saved) - set(specs))[:4]}, a spec but not "
+            f"saved {sorted(set(specs) - set(saved))[:4]}")
+    out = []
+    for i, (path, arr, dtype) in enumerate(leaves):
+        leaves[i] = None
+        spec = specs[path]
+        if isinstance(spec, sharding.NamedSharding):
+            at, spec = spec.mesh, spec.spec
+        elif mesh is None:
+            raise ValueError(f"{path}: a PartitionSpec and no mesh")
+        else:
+            at = mesh
+        try:
+            # onto the mesh's device type first: pieces move within it
+            t = _from_numpy(arr, dtype).to(at.devices.flat[0])
+            out.append((path, sharding.place(t, spec, at)))
+            del t
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
+        del arr
+    return _unflatten_paths(out)
 
 
 # ---------------------------------------------------------------------------

@@ -38,8 +38,18 @@ norm of all of them (each slice once).  Gradient compression (``pca_ef``,
 ``gae``) runs on the gradient pieces after the data axis's mean, as JAX's
 GSPMD step runs it on the whole gradient (``grad_compress``): the error
 buffers are pieces cut as the params, the basis one per device.  A
-one-device ``TrainState`` handed to it is sharded first; a checkpoint of
-its state holds the whole arrays.
+one-device ``TrainState`` handed to it is placed first, by the step's
+``shardings`` (a ``TrainState`` of specs, JAX's ``in_shardings``; by
+default ``sharding.train_state_specs``'s tensor-parallel ones); a
+checkpoint of its state holds the whole arrays.
+
+FSDP (``shardings`` from ``train_state_specs(..., fsdp=True)``, the dry
+run's placement) cuts the large leaves over the ``"data"`` axis too, at
+any model axis, ``(2, 1)`` included: each data row gathers a cut leaf's
+tensor-parallel piece at use and its gradient is reduce-scattered over the
+data shards as the backward produces it (``parallel.fsdp``); the rest of
+the step is the tensor-parallel one.  Gradient compression and the moe
+family over more than one data shard are refused there (``check_fsdp``).
 """
 from __future__ import annotations
 
@@ -53,10 +63,11 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.exec import resolve_device
 from repro_torch.launch.mesh import (Mesh, bound_axis, check_device_type,
-                                     data_devices, shard_grid, tp_size)
+                                     data_devices, dp_size, shard_grid,
+                                     tp_size)
 from repro_torch.models import registry
 from repro_torch.models.transformer import cast_params
-from repro_torch.parallel import collectives, sharding
+from repro_torch.parallel import collectives, fsdp, sharding
 from repro_torch.parallel.sharding import Sharded
 from repro_torch.parallel.tensor import Shards
 from repro_torch.runtime import grad_compress
@@ -163,7 +174,8 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
                     optimizer: optim.Optimizer, *,
                     microbatches: int = 1,
                     axis_name: Optional[str] = None,
-                    mesh: Optional[Mesh] = None) -> Callable:
+                    mesh: Optional[Mesh] = None,
+                    shardings: Optional[TrainState] = None) -> Callable:
     """Returns step(state, batch) -> (new state, metrics).
 
     ``batch`` holds "tokens" and "labels" ((B, S) ints, numpy or tensors);
@@ -181,6 +193,13 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
     replicas drift apart: those two are refused there (the GSPMD mode
     covers them).  ``axis_name`` without a mesh that has the axis is a
     ``NameError``, as in JAX.
+
+    ``shardings`` (a ``TrainState`` of specs, JAX's ``in_shardings``) places
+    the state over ``mesh``; by default the tensor-parallel specs of
+    ``sharding.train_state_specs``.  With a model axis above 1, or
+    specs that cut over the ``"data"`` axis (FSDP), the step is the
+    sharded one: a whole state handed to it is placed by ``shardings``,
+    and a sharded state of another placement is refused (``ValueError``).
     """
     if run.gradient_compression not in GRADIENT_COMPRESSION:
         raise ValueError(f"gradient_compression "
@@ -204,9 +223,16 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
                 f"without axis_name")
         return _shard_map_step(cfg, run, optimizer, microbatches, mesh,
                                axis_name, devices)
-    if mesh is not None and tp_size(mesh) > 1:
+    if shardings is not None and mesh is None:
+        raise ValueError("shardings place the state over a mesh: pass "
+                         "mesh= too")
+    cut = shardings is not None and fsdp.cuts_data(shardings, mesh)
+    if mesh is not None and (tp_size(mesh) > 1 or cut):
         _check_tensor_parallel(cfg, run, mesh)
-        return _tensor_parallel_step(cfg, run, optimizer, microbatches, mesh)
+        if cut:
+            check_fsdp(cfg, run, mesh)
+        return _tensor_parallel_step(cfg, run, optimizer, microbatches, mesh,
+                                     shardings)
     compute_grads = value_and_grad(cfg, run, microbatches)
     apply = _apply_grads(run, optimizer)
     if mesh is not None:
@@ -309,12 +335,17 @@ def _shard_batches(cfg: ModelConfig, batch: dict, dp: int,
     return out
 
 
-def _weighted_sum(one: Callable, params, pieces: list) -> tuple:
+def _weighted_sum(one: Callable, params, pieces: list,
+                  weigh: Optional[Callable] = None) -> tuple:
     """``(w * loss, *w * grads)`` of ``one(params, batch) -> (loss, list
     of grads)`` summed over the (batch, w) ``pieces``; one piece of weight
-    1 is ``one``'s result as it is."""
+    1 is ``one``'s result as it is.  ``weigh(w)`` is told each piece's
+    weight before it runs (FSDP's cut gradients, which leave ``one`` by
+    another road, take it there)."""
     loss, acc = None, None
     for batch, w in pieces:
+        if weigh is not None:
+            weigh(w)
         l, leaves = one(params, batch)
         if w != 1.0:
             l = l * w
@@ -457,40 +488,48 @@ def check_tensor_parallel(cfg: ModelConfig, run: RunConfig) -> None:
     registry.check_tensor_parallel(cfg, run.tp)
 
 
+def check_fsdp(cfg: ModelConfig, run: RunConfig, mesh: Mesh) -> None:
+    """Raise for what a placement that cuts leaves over the ``"data"`` axis
+    (FSDP) does not train: gradient compression (``NotImplementedError``:
+    ``grad_compress._fill_rows`` takes every data row to hold the same
+    pieces, which FSDP breaks) and the moe family over more than one data
+    shard (``ValueError``, ROADMAP.md §3 divergence 10)."""
+    if run.gradient_compression != "none":
+        raise NotImplementedError(
+            f"gradient_compression {run.gradient_compression!r} with params "
+            f"cut over the 'data' axis (FSDP): grad_compress._fill_rows "
+            f"takes every data row to hold the same pieces, which FSDP "
+            f"breaks (ROADMAP.md §1)")
+    _refuse_moe_over_data_shards(cfg, dp_size(mesh))
+
+
 def is_sharded(tree) -> bool:
     """Whether ``tree`` holds ``Sharded`` pieces."""
     return bool(sharding.sharded_leaves(tree))
 
 
-def shard_train_state(state: TrainState, mesh: Mesh) -> TrainState:
+def shard_train_state(state: TrainState, mesh: Mesh,
+                      specs: Optional[TrainState] = None) -> TrainState:
     """``state`` (one device's, as ``init_train_state`` or a checkpoint's
-    ``restore`` gives it) with its params, each of the optimizer's
-    param-shaped trees and the compression's error buffers held as
-    ``Sharded`` pieces over ``mesh``, cut by ``param_partition_specs(
-    tp_size=)`` of the mesh's model axis, and the compression's basis
-    replicated (one per device)."""
-    n = tp_size(mesh)
-    opt = state.opt
-    opt = type(opt)(*(f if name == "step" else
-                      sharding.shard_params(f, mesh, n)
-                      for name, f in zip(opt._fields, opt)))
-    gc = state.gc
-    if gc is not None:
-        gc = gc._replace(basis=sharding.shard_leaf(gc.basis, (), mesh),
-                         error=sharding.shard_params(gc.error, mesh, n))
-    return state._replace(params=sharding.shard_params(state.params, mesh, n),
-                          opt=opt, gc=gc)
+    ``restore`` gives it) placed over ``mesh`` by ``specs`` (a
+    ``TrainState`` of specs; by default ``sharding.train_state_specs``'s
+    tensor-parallel ones): its params, each of the optimizer's
+    param-shaped trees and the compression's error buffers as ``Sharded``
+    pieces, the compression's basis replicated (one per device), the step
+    counters on the mesh's first device."""
+    if specs is None:
+        specs = sharding.train_state_specs(state, mesh)
+    return sharding.place_tree(state, specs, mesh)
 
 
 def model_shards(params, mesh: Mesh, row: int = 0) -> Shards:
     """The params of data shard ``row``'s model shards (a tree of
-    ``Sharded`` pieces cut to each shard's tree), as the model code takes
-    them: ``models.transformer.forward(model_shards(...), ...)``."""
+    ``Sharded`` pieces cut to each shard's tree; a leaf cut over
+    ``"data"`` gathered at use, ``fsdp.row_trees``), as the model code
+    takes them: ``models.transformer.forward(model_shards(...), ...)``."""
     grid = shard_grid(mesh)
-    return Shards([sharding.map_sharded(
-        lambda sh, s=s: sh.pieces[grid[row, s]], params)
-        for s in range(grid.shape[1])],
-        None, [mesh.devices[c] for c in grid[row]])
+    return Shards(fsdp.row_trees(params, mesh, row), None,
+                  [mesh.devices[c] for c in grid[row]])
 
 
 def unshard_train_state(state: TrainState) -> TrainState:
@@ -523,8 +562,12 @@ def tensor_parallel_value_and_grad(cfg: ModelConfig, run: RunConfig,
     (``collectives.all_reduce``).  Then the mean over the data shards, one
     all-reduce for each model shard of the gradients it holds that no
     earlier model shard's reduction holds (a replicated leaf that the
-    rows' shards share is reduced once).  The moe family is refused over
-    more than one data shard (ROADMAP.md §3, divergence 10)."""
+    rows' shards share is reduced once).  A leaf cut over ``"data"``
+    (FSDP) is gathered at use, and its gradient summed into each data
+    shard's cut as each row's backward produces it, then averaged: the
+    data axis's reduce-scatter (``fsdp.CutGrads``).  The moe family is
+    refused over more than one data shard (ROADMAP.md §3, divergence
+    10)."""
     _check_tensor_parallel(cfg, run, mesh)
     grid = shard_grid(mesh)
     dp, n = grid.shape
@@ -539,7 +582,7 @@ def tensor_parallel_value_and_grad(cfg: ModelConfig, run: RunConfig,
     def row_devices(r: int) -> list:
         return [mesh.devices[c] for c in grid[r]]
 
-    def one_row(r: int, params, leaves: list):
+    def one_row(r: int, params, leaves: list, cuts: fsdp.CutGrads):
         held = row_objects(leaves, r)
         devs = row_devices(r)
 
@@ -549,20 +592,21 @@ def tensor_parallel_value_and_grad(cfg: ModelConfig, run: RunConfig,
                 for p in objs:
                     if id(p) not in own:
                         own[id(p)] = p.detach().requires_grad_()
-            trees = [sharding.map_sharded(
-                lambda sh, s=s: own[id(sh.pieces[grid[r, s]])], params)
-                for s in range(n)]
+            trees = fsdp.row_trees(params, mesh, r, own=own, grads=cuts)
             if early:
                 trees = [cast_params(t, run.compute_dtype) for t in trees]
             loss = api.train_loss(Shards(trees, None, devs), cfg, run,
                                   _on_device(batch, devs[0]))
             keys = list(own)
+            anchors = cuts.take_anchors()
             # a copy that its shard does not read (whisper's b_out beyond
-            # shard 0) has a part of 0
+            # shard 0) has a part of 0; the anchors' parts are 0 (the cut
+            # leaves' gradients went to ``cuts``)
             got = {k: torch.zeros_like(own[k]) if g is None else g
                    for k, g in zip(keys, torch.autograd.grad(
-                       loss, [own[k] for k in keys], allow_unused=True))}
-            del own, trees
+                       loss, [own[k] for k in keys] + anchors,
+                       allow_unused=True))}
+            del own, trees, anchors
             out = []
             for sh, objs in zip(leaves, held):
                 # distinct copies of one slice in the row: their parts
@@ -582,10 +626,15 @@ def tensor_parallel_value_and_grad(cfg: ModelConfig, run: RunConfig,
         return one
 
     def fn(params, batch: dict) -> tuple[Tensor, Any]:
-        leaves = sharding.sharded_leaves(params)
-        rows = [_weighted_sum(one_row(r, params, leaves), None, pieces)
-                for r, pieces in enumerate(_shard_batches(cfg, batch, dp,
-                                                          microbatches))]
+        every = sharding.sharded_leaves(params)
+        # the leaves cut over "data" go through ``cuts``; the others here
+        leaves = [sh for sh in every if fsdp.cut_dim(sh) is None]
+        batches = _shard_batches(cfg, batch, dp, microbatches)
+        cuts = fsdp.CutGrads(every, float32=microbatches > 1 or any(
+            w != 1.0 for pieces in batches for _, w in pieces))
+        rows = [_weighted_sum(one_row(r, params, leaves, cuts), None, pieces,
+                              weigh=cuts.weigh)
+                for r, pieces in enumerate(batches)]
         # rows[r] = (loss, grad of leaf l at shard s for l, s): one mean
         # all-reduce over the data shards for each model shard, of the
         # leaves whose rows' gradients no earlier shard's holds (the same
@@ -616,6 +665,7 @@ def tensor_parallel_value_and_grad(cfg: ModelConfig, run: RunConfig,
                     pieces[grid[r, s]] = reduced[s0][r][j]
             grads[id(sh)] = Sharded(pieces, sh.spec, sh.mesh)
         del rows
+        grads.update(cuts.mean())
         return loss, sharding.map_sharded(lambda sh: grads[id(sh)], params)
 
     return fn
@@ -623,19 +673,26 @@ def tensor_parallel_value_and_grad(cfg: ModelConfig, run: RunConfig,
 
 def _tensor_parallel_step(cfg: ModelConfig, run: RunConfig,
                           optimizer: optim.Optimizer, microbatches: int,
-                          mesh: Mesh) -> Callable:
-    """The GSPMD step over a mesh with a ``"model"`` axis (module
-    docstring): the gradient pieces of ``tensor_parallel_value_and_grad``,
-    compressed on their pieces (``_compress``), their global norm over
-    each slice once (a sharded leaf's pieces, a replicated leaf once),
-    then the optimizer on copies of each device's pieces, clipped by that
-    norm."""
+                          mesh: Mesh,
+                          shardings: Optional[TrainState] = None) -> Callable:
+    """The GSPMD step over a mesh with a ``"model"`` axis or with leaves
+    cut over ``"data"`` (module docstring): the state placed by
+    ``shardings`` (a sharded state of another placement refused), the
+    gradient pieces of ``tensor_parallel_value_and_grad``, compressed on
+    their pieces (``_compress``), their global norm over each slice once (a
+    sharded leaf's pieces, a replicated leaf once), then the optimizer on
+    copies of each device's pieces, clipped by that norm."""
     grads_of = tensor_parallel_value_and_grad(cfg, run, mesh, microbatches)
     home = mesh.devices.flat[0]
+    kept = {"specs": shardings}
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        if kept["specs"] is None:
+            kept["specs"] = sharding.train_state_specs(state, mesh)
         if not is_sharded(state.params):
-            state = shard_train_state(state, mesh)
+            state = shard_train_state(state, mesh, kept["specs"])
+        else:
+            _check_placement(state.params, kept["specs"].params, mesh)
         loss, grads = grads_of(state.params, batch)
         metrics = {"loss": loss}
         grads, gc_state = _compress(run, state.gc, grads, metrics)
@@ -673,6 +730,33 @@ def _tensor_parallel_step(cfg: ModelConfig, run: RunConfig,
                           step=state.step + 1), metrics
 
     return step
+
+
+def _check_placement(params, specs, mesh: Mesh) -> None:
+    """A ``ValueError`` naming both placements where a sharded ``params``
+    tree is not cut by ``specs`` over ``mesh``."""
+    def at(path: str):
+        node = specs
+        for k in path.split("/"):
+            node = node[k]
+        return sharding.P(*node)
+
+    def same_mesh(m: Mesh) -> bool:
+        return m is mesh or (m.axis_names == mesh.axis_names
+                             and m.devices.shape == mesh.devices.shape
+                             and bool(np.all(m.devices == mesh.devices)))
+
+    def check(path: str, sh: Sharded) -> Sharded:
+        want = at(path)
+        if sh.spec != want or not same_mesh(sh.mesh):
+            raise ValueError(
+                f"the state is placed otherwise than the step's shardings: "
+                f"{path} is cut {tuple(sh.spec)} over mesh {sh.mesh.shape}, "
+                f"where the shardings cut it {tuple(want)} over mesh "
+                f"{mesh.shape}; hand the step a whole state, or restore it "
+                f"with CheckpointManager.restore(mesh=, shardings=)")
+        return sh
+    sharding.map_sharded(check, params, with_path=True)
 
 
 def per_shard_states(state: TrainState, mesh: Mesh,
